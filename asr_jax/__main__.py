@@ -1,0 +1,4 @@
+from asr_jax.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,9 +9,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.models import whisper as wh
-from asr_tpu.parallel.aed_batcher import (
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.models import whisper as wh
+from asr_jax.parallel.aed_batcher import (
     AedEngineSpec,
     ContinuousAedBatcher,
     aed_decoder_step_rowwise,
@@ -88,7 +88,7 @@ def test_rowwise_step_matches_decoder_block():
     ref_logits, ref_state = wh.step(params, WCFG, state, tok,
                                     jnp.asarray(4, jnp.int32))
 
-    from asr_tpu.parallel.aed_batcher import _embed_rows
+    from asr_jax.parallel.aed_batcher import _embed_rows
     spec = spec_for_whisper(WCFG)
     x = _embed_rows(params["decoder"], spec, tok[:, 0],
                     jnp.asarray([4, 4], jnp.int32))
@@ -97,7 +97,7 @@ def test_rowwise_step_matches_decoder_block():
         params["decoder"], spec, x[:, None], state,
         jnp.asarray([4, 4], jnp.int32), jnp.asarray([tc, tc], jnp.int32),
         jnp.asarray([True, True]))
-    from asr_tpu.quant.quantize import embedding_logits
+    from asr_jax.quant.quantize import embedding_logits
     row_logits = embedding_logits(params["decoder"]["embed"], hidden[:, -1])
     np.testing.assert_allclose(np.asarray(row_logits), np.asarray(ref_logits),
                                rtol=1e-5, atol=1e-5)
@@ -115,7 +115,7 @@ def test_rowwise_inactive_rows_untouched():
     marker = state["layers"][0]["self_k"].at[1].set(3.25)
     state["layers"] = (dict(state["layers"][0], self_k=marker),) + state["layers"][1:]
     spec = spec_for_whisper(WCFG)
-    from asr_tpu.parallel.aed_batcher import _embed_rows
+    from asr_jax.parallel.aed_batcher import _embed_rows
     x = _embed_rows(params["decoder"], spec, jnp.asarray([4, 4], jnp.int32),
                     jnp.asarray([0, 5], jnp.int32))
     _, st = aed_decoder_step_rowwise(
@@ -209,7 +209,7 @@ def test_slot_exhaustion_and_no_speech_cap():
 
 
 def test_firered_continuous_matches_solo():
-    from asr_tpu.models import firered as fr
+    from asr_jax.models import firered as fr
 
     cfg = fr.FireRedConfig(vocab_size=60, d_model=32, enc_layers=1,
                            enc_heads=4, conv_kernel=9, dec_layers=2,
@@ -262,7 +262,7 @@ def test_firered_continuous_matches_solo():
 
 
 def test_dolphin_continuous_matches_solo_with_probes():
-    from asr_tpu.models import dolphin as dp
+    from asr_jax.models import dolphin as dp
 
     cfg = dp.DolphinConfig(vocab_size=60, d_model=32, enc_layers=1,
                            enc_heads=4, enc_ffn=48, cgmlp_dim=48,

@@ -15,7 +15,7 @@ import numpy as np
 import jax
 import pytest
 
-from asr_tpu.parallel.llm_server import ContinuousSessionServer
+from asr_jax.parallel.llm_server import ContinuousSessionServer
 
 
 class _Tok:
@@ -34,8 +34,8 @@ def _wav_bytes(samples: np.ndarray, rate: int = 16000) -> bytes:
 
 
 def _whisper_session(max_new_tokens=6, no_speech_threshold=None):
-    from asr_tpu.models import whisper as wh
-    from asr_tpu.runtime.whisper_session import (
+    from asr_jax.models import whisper as wh
+    from asr_jax.runtime.whisper_session import (
         WhisperSession, WhisperSessionConfig)
 
     cfg = wh.WhisperConfig(
@@ -135,9 +135,9 @@ def test_aed_engine_rejects_tensor_parallel():
 
 
 def test_firered_continuous_server_matches_session():
-    from asr_tpu.decode.ar import DecodeConfig
-    from asr_tpu.models import firered as fr
-    from asr_tpu.runtime.transducer_session import FireRedSession
+    from asr_jax.decode.ar import DecodeConfig
+    from asr_jax.models import firered as fr
+    from asr_jax.runtime.transducer_session import FireRedSession
 
     cfg = fr.FireRedConfig(vocab_size=60, d_model=32, enc_layers=1,
                            enc_heads=4, conv_kernel=9, dec_layers=2,
@@ -160,9 +160,9 @@ def test_firered_continuous_server_matches_session():
 
 
 def test_dolphin_continuous_server_matches_session():
-    from asr_tpu.decode.ar import DecodeConfig
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.runtime.transducer_session import DolphinSession
+    from asr_jax.decode.ar import DecodeConfig
+    from asr_jax.models import dolphin as dp
+    from asr_jax.runtime.transducer_session import DolphinSession
 
     cfg = dp.DolphinConfig(vocab_size=60, d_model=32, enc_layers=1,
                            enc_heads=4, enc_ffn=48, cgmlp_dim=48,
@@ -191,7 +191,7 @@ def test_dolphin_continuous_server_matches_session():
 def test_cli_serve_continuous_accepts_whisper(monkeypatch):
     """serve --continuous routes an AED session into the continuous server
     (no SystemExit) — the engine-dispatch line the r4 verdict asked for."""
-    from asr_tpu import cli
+    from asr_jax import cli
 
     sess = _whisper_session()
     called = {}
@@ -200,7 +200,7 @@ def test_cli_serve_continuous_accepts_whisper(monkeypatch):
         called["session"] = session
 
     monkeypatch.setattr(cli, "_build_session", lambda *a, **k: sess)
-    monkeypatch.setattr("asr_tpu.parallel.llm_server.serve_continuous",
+    monkeypatch.setattr("asr_jax.parallel.llm_server.serve_continuous",
                         fake_serve)
     args = type("A", (), dict(model_dir="x", language=None, continuous=True,
                               slots=2, context="", host="127.0.0.1", port=0,

@@ -8,10 +8,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.cli import main
-from asr_tpu.models import sensevoice as sv
-from asr_tpu.runtime.artifact import save_model
-from asr_tpu.runtime.metadata import ModelMetadata
+from asr_jax.cli import main
+from asr_jax.models import sensevoice as sv
+from asr_jax.runtime.artifact import save_model
+from asr_jax.runtime.metadata import ModelMetadata
 
 TINY = sv.SenseVoiceConfig(
     vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -33,7 +33,9 @@ def test_inspect_and_transcribe(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["family"] == "sensevoice"
 
-    wav = "/root/reference/Test_Examples/en/test_sample.wav"
+    from asr_jax.runtime.examples import fixture_path
+
+    wav = str(fixture_path("en/test_sample.wav"))
     assert main(["transcribe", "--model-dir", str(tmp_path / "m"), "--language", "en", wav]) == 0
     text = capsys.readouterr().out
     assert "RTF" in text
@@ -48,11 +50,11 @@ def test_quantize_roundtrip(tmp_path, capsys):
 
 
 def test_cli_build_firered(tmp_path):
-    """`asr_tpu build` end-to-end: synthetic FireRed checkpoint -> artifact
+    """`asr_jax build` end-to-end: synthetic FireRed checkpoint -> artifact
     -> transcribe-able session."""
     import torch
 
-    from asr_tpu.cli import main, _build_session
+    from asr_jax.cli import main, _build_session
     from tests.test_firered import TINY, _firered_sd
 
     rng = np.random.default_rng(1)
@@ -75,7 +77,7 @@ def test_cli_parity_harness(tmp_path):
 
     import torch
 
-    from asr_tpu.cli import main
+    from asr_jax.cli import main
     from tests.test_firered import TINY, _firered_sd
 
     rng = np.random.default_rng(2)
@@ -131,7 +133,7 @@ def test_cli_parity_probe_localizes_stage(tmp_path, capsys):
     encoder vs decode; transcript-only goldens still compare clean."""
     import torch
 
-    from asr_tpu.cli import main
+    from asr_jax.cli import main
     from tests.test_firered import TINY, _firered_sd
 
     rng = np.random.default_rng(3)
@@ -171,10 +173,10 @@ def test_cli_parity_probe_localizes_stage(tmp_path, capsys):
 def test_capture_probe_sensevoice_and_whisper():
     """capture_probe covers the CTC (sensevoice) and AED (whisper) session
     shapes; unsupported sessions return None (transcript-only goldens)."""
-    from asr_tpu.models import whisper as wh
-    from asr_tpu.runtime.probe import capture_probe, compare_probes
-    from asr_tpu.runtime.session import SenseVoiceSession
-    from asr_tpu.runtime.whisper_session import WhisperSession
+    from asr_jax.models import whisper as wh
+    from asr_jax.runtime.probe import capture_probe, compare_probes
+    from asr_jax.runtime.session import SenseVoiceSession
+    from asr_jax.runtime.whisper_session import WhisperSession
 
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal(8000) * 2000).astype(np.float32)
@@ -212,10 +214,10 @@ def test_serve_stream_rejects_non_streaming_family(tmp_path):
 
     import pytest
 
-    from asr_tpu.cli import main
-    from asr_tpu.models import sensevoice as sv
-    from asr_tpu.runtime.artifact import save_model
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax.cli import main
+    from asr_jax.models import sensevoice as sv
+    from asr_jax.runtime.artifact import save_model
+    from asr_jax.runtime.metadata import ModelMetadata
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,

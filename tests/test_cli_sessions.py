@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import jax
 
-from asr_tpu.runtime.artifact import save_model
-from asr_tpu.runtime.metadata import ModelMetadata, config_from_dict
+from asr_jax.runtime.artifact import save_model
+from asr_jax.runtime.metadata import ModelMetadata, config_from_dict
 
 
 def _roundtrip(cfg):
@@ -20,17 +20,17 @@ def _roundtrip(cfg):
 
 
 def test_config_from_dict_roundtrip_all_families():
-    from asr_tpu.layers.qwen3 import Qwen3Config
-    from asr_tpu.models.dolphin import DolphinConfig
-    from asr_tpu.models.firered import FireRedConfig
-    from asr_tpu.models.fun_asr_nano import FunAsrNanoConfig
-    from asr_tpu.models.nemotron import NemotronConfig
-    from asr_tpu.models.paraformer import ParaformerConfig
-    from asr_tpu.models.parakeet import ParakeetConfig
-    from asr_tpu.models.qwen_asr import QwenAsrConfig
-    from asr_tpu.models.sensevoice import SenseVoiceConfig
-    from asr_tpu.models.whisper import WhisperConfig
-    from asr_tpu.models.zipformer import ZipformerConfig
+    from asr_jax.layers.qwen3 import Qwen3Config
+    from asr_jax.models.dolphin import DolphinConfig
+    from asr_jax.models.firered import FireRedConfig
+    from asr_jax.models.fun_asr_nano import FunAsrNanoConfig
+    from asr_jax.models.nemotron import NemotronConfig
+    from asr_jax.models.paraformer import ParaformerConfig
+    from asr_jax.models.parakeet import ParakeetConfig
+    from asr_jax.models.qwen_asr import QwenAsrConfig
+    from asr_jax.models.sensevoice import SenseVoiceConfig
+    from asr_jax.models.whisper import WhisperConfig
+    from asr_jax.models.zipformer import ZipformerConfig
 
     for cfg in (
         SenseVoiceConfig(), WhisperConfig(), ParaformerConfig(),
@@ -41,7 +41,7 @@ def test_config_from_dict_roundtrip_all_families():
         assert _roundtrip(cfg) == cfg
 
     # Non-default nested values survive too.
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
 
     cfg = ParakeetConfig(d_model=96, mel=NemoMelConfig(n_mels=64))
     rt = _roundtrip(cfg)
@@ -65,8 +65,8 @@ def _save(tmp_path, family, params, cfg, **extra):
 
 
 def test_build_session_paraformer_roundtrip(tmp_path):
-    from asr_tpu.cli import _build_session
-    from asr_tpu.models import paraformer as pf
+    from asr_jax.cli import _build_session
+    from asr_jax.models import paraformer as pf
 
     cfg = pf.ParaformerConfig(
         vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -83,9 +83,9 @@ def test_build_session_paraformer_roundtrip(tmp_path):
 
 
 def test_build_session_parakeet_roundtrip(tmp_path):
-    from asr_tpu.cli import _build_session
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import parakeet as pk
+    from asr_jax.cli import _build_session
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import parakeet as pk
 
     cfg = pk.ParakeetConfig(
         vocab_size=40, blank_id=39, d_model=64, num_layers=1, num_heads=4,
@@ -103,8 +103,8 @@ def test_build_session_parakeet_roundtrip(tmp_path):
 
 
 def test_build_session_dolphin_probe(tmp_path):
-    from asr_tpu.cli import _build_session
-    from asr_tpu.models import dolphin as dp
+    from asr_jax.cli import _build_session
+    from asr_jax.models import dolphin as dp
 
     cfg = dp.DolphinConfig(
         vocab_size=80, d_model=32, enc_layers=1, enc_heads=4, enc_ffn=48,
@@ -126,7 +126,7 @@ def test_build_session_dolphin_probe(tmp_path):
 
 
 def test_build_session_unknown_family(tmp_path):
-    from asr_tpu.cli import _build_session
+    from asr_jax.cli import _build_session
 
     folder = _save(tmp_path, "martian", {"w": np.zeros((2, 2), np.float32)},
                    dataclasses.make_dataclass("C", [])())
@@ -139,21 +139,21 @@ def test_build_session_every_family_constructs(tmp_path):
     _build_session reconstructs a session object from a saved artifact
     (construction only — transcription is covered per-family elsewhere)."""
     import jax
-    from asr_tpu.cli import _build_session
-    from asr_tpu.layers import qwen3
+    from asr_jax.cli import _build_session
+    from asr_jax.layers import qwen3
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
     llm = qwen3.init_params(lcfg, jax.random.PRNGKey(9))
     cases = {}
 
-    from asr_tpu.models import sensevoice as sv
+    from asr_jax.models import sensevoice as sv
     cfg = sv.SenseVoiceConfig(vocab_size=64, hidden=32, num_heads=4, head_dim=8,
                               ffn_dim=64, num_encoders0=1, num_encoders=1,
                               num_tp_encoders=1, fsmn_kernel=5)
     cases["sensevoice"] = (sv.init_params(cfg, jax.random.PRNGKey(0)), cfg, {})
 
-    from asr_tpu.models import whisper as wh
+    from asr_jax.models import whisper as wh
     cfg = wh.WhisperConfig(vocab_size=80, n_mels=16, d_model=32, encoder_layers=1,
                            decoder_layers=1, num_heads=4, ffn_dim=48,
                            max_source_positions=32, max_target_positions=16,
@@ -162,7 +162,7 @@ def test_build_session_every_family_constructs(tmp_path):
                            num_languages=5)
     cases["whisper"] = (wh.init_params(cfg, jax.random.PRNGKey(1)), cfg, {})
 
-    from asr_tpu.models import paraformer as pf
+    from asr_jax.models import paraformer as pf
     cfg = pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4, head_dim=8,
                               ffn_dim=48, num_encoders0=1, num_encoders=1,
                               num_decoders=1, num_decoder_ffn=1, fsmn_kernel=5,
@@ -170,8 +170,8 @@ def test_build_session_every_family_constructs(tmp_path):
     pfp = pf.init_params(cfg, jax.random.PRNGKey(2))
     cases["paraformer_streaming"] = (pfp, cfg, {})
 
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import nemotron as nm
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import nemotron as nm
     cfg = nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=1, num_heads=4,
                             ffn_dim=48, conv_kernel=5, sub_channels=8, pred_hidden=16,
                             joint_hidden=16, prompt_hidden=16, lstm_layers=1,
@@ -181,13 +181,13 @@ def test_build_session_every_family_constructs(tmp_path):
     cases["nemotron"] = (nmp, cfg, {})
     cases["nemotron_streaming"] = (nmp, cfg, {})
 
-    from asr_tpu.models import firered as fr
+    from asr_jax.models import firered as fr
     cfg = fr.FireRedConfig(vocab_size=60, d_model=32, enc_layers=1, enc_heads=4,
                            conv_kernel=9, dec_layers=1, dec_heads=4, dec_ffn=48,
                            max_target_positions=16)
     cases["firered"] = (fr.init_params(cfg, jax.random.PRNGKey(4)), cfg, {})
 
-    from asr_tpu.models import dolphin as dp
+    from asr_jax.models import dolphin as dp
     cfg = dp.DolphinConfig(vocab_size=60, d_model=32, enc_layers=1, enc_heads=4,
                            enc_ffn=48, cgmlp_dim=48, csgu_kernel=5, fusion_kernel=3,
                            dec_layers=1, dec_heads=4, dec_ffn=48, sos_id=50, eos_id=51,
@@ -195,7 +195,7 @@ def test_build_session_every_family_constructs(tmp_path):
     dpp = dp.init_params(cfg, jax.random.PRNGKey(5))
     cases["dolphin_streaming"] = (dpp, cfg, {})
 
-    from asr_tpu.models import fun_asr_nano as fn
+    from asr_jax.models import fun_asr_nano as fn
     cfg = fn.FunAsrNanoConfig(hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
                               num_encoders0=1, num_encoders=1, num_tp_encoders=1,
                               fsmn_kernel=5, adaptor_hidden=48, adaptor_blocks=1,
@@ -206,7 +206,7 @@ def test_build_session_every_family_constructs(tmp_path):
     cases["fun_asr_nano"] = (fnp, cfg, {})
     cases["fun_asr_nano_llm"] = ({"encoder": fnp, "llm": llm}, cfg, {})
 
-    from asr_tpu.models import zipformer as zf
+    from asr_jax.models import zipformer as zf
     cfg = zf.ZipformerConfig(vocab_size=40, downsampling_factor=(1, 2),
                              num_encoder_layers=(1, 1), encoder_dim=(32, 48),
                              query_head_dim=(8, 8), pos_head_dim=(4, 4),
@@ -218,14 +218,14 @@ def test_build_session_every_family_constructs(tmp_path):
                              decoder_conv_groups=4)
     cases["x_asr"] = (zf.init_params(cfg, jax.random.PRNGKey(7)), cfg, {})
 
-    from asr_tpu.models import qwen_asr as qa
+    from asr_jax.models import qwen_asr as qa
     cfg = qa.QwenAsrConfig(n_mels=16, tower_dim=32, tower_layers=1, tower_heads=4,
                            tower_ffn=48, downsample_hidden=8, chunks_per_window=2,
                            output_dim=lcfg.hidden, llm=lcfg, eot_id=-1)
     qt = qa.init_tower_params(cfg, jax.random.PRNGKey(8))
     cases["qwen_asr"] = ({"tower": qt, "llm": llm}, cfg, {})
 
-    from asr_tpu.models import forced_aligner as fa
+    from asr_jax.models import forced_aligner as fa
     acfg = fa.ForcedAlignerConfig(asr=cfg, classify_num=25, segment_ms=80)
     head = {"w": jax.random.normal(jax.random.PRNGKey(10), (lcfg.hidden, 25)) * 0.1}
     cases["qwen_aligner"] = (
@@ -249,8 +249,8 @@ def test_dtype_bf16_serving_cast(tmp_path):
     still transcribes (norms/softmax internally f32)."""
     import jax.numpy as jnp
 
-    from asr_tpu.cli import _build_session
-    from asr_tpu.models import sensevoice as sv
+    from asr_jax.cli import _build_session
+    from asr_jax.models import sensevoice as sv
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -275,8 +275,8 @@ def test_cli_multifile_transcribe_with_language_windowed_family(tmp_path):
     unconditionally into _forward)."""
     import wave
 
-    from asr_tpu.cli import main
-    from asr_tpu.models import paraformer as pf
+    from asr_jax.cli import main
+    from asr_jax.models import paraformer as pf
 
     cfg = pf.ParaformerConfig(
         vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -311,9 +311,9 @@ def test_dolphin_language_catalog_and_named_forcing(tmp_path):
 
     import pytest
 
-    from asr_tpu.cli import _build_session
-    from asr_tpu.export import dolphin_language_catalog
-    from asr_tpu.models import dolphin as dp
+    from asr_jax.cli import _build_session
+    from asr_jax.export import dolphin_language_catalog
+    from asr_jax.models import dolphin as dp
 
     # synthetic vocab with the reference's token structure:
     # ... <asr> <zh> <ja> <CN> <SICHUAN> <notimestamp> ...
@@ -370,18 +370,18 @@ def test_dolphin_language_catalog_and_named_forcing(tmp_path):
 
 
 def test_cli_optimize_plan_roundtrip_qwen(tmp_path):
-    """`asr_tpu optimize --plan` applies the per-component serving recipe
+    """`asr_jax optimize --plan` applies the per-component serving recipe
     (reference ``Qwen_ASR/Optimize_ONNX.py:139-161``: Encoder Q8 + Main Q4
     + Embed quantized) and the resulting artifact loads + transcribes
     through the normal session path with QuantizedLinear /
     QuantizedEmbedding leaves intact."""
     import json
 
-    from asr_tpu.cli import _build_session, main
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.quant.quantize import QuantizedEmbedding, QuantizedLinear
-    from asr_tpu.runtime.artifact import load_model
+    from asr_jax.cli import _build_session, main
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.quant.quantize import QuantizedEmbedding, QuantizedLinear
+    from asr_jax.runtime.artifact import load_model
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64)

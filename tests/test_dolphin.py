@@ -8,10 +8,10 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.frontend.espnet_mel import EspnetMelConfig, log_mel
-from asr_tpu.layers.ebranchformer import ebranchformer_block, init_block_params
-from asr_tpu.models import dolphin as dp
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.frontend.espnet_mel import EspnetMelConfig, log_mel
+from asr_jax.layers.ebranchformer import ebranchformer_block, init_block_params
+from asr_jax.models import dolphin as dp
 
 TINY = dp.DolphinConfig(
     vocab_size=80, d_model=32, enc_layers=2, enc_heads=4, enc_ffn=48,
@@ -47,7 +47,7 @@ def torch_ebranchformer_block(x, p, heads):
     q = (y @ t(p["attn"]["q"]["w"]) + t(p["attn"]["q"]["b"])).reshape(B, S, heads, hd).permute(0, 2, 1, 3)
     k = (y @ t(p["attn"]["k"]["w"]) + t(p["attn"]["k"]["b"])).reshape(B, S, heads, hd).permute(0, 2, 1, 3)
     v = (y @ t(p["attn"]["v"]["w"]) + t(p["attn"]["v"]["b"])).reshape(B, S, heads, hd).permute(0, 2, 1, 3)
-    from asr_tpu.layers.conformer import relative_position_embedding
+    from asr_jax.layers.conformer import relative_position_embedding
 
     pe = t(relative_position_embedding(S, d))
     rel_k = (pe @ t(p["attn"]["rel_k"]["w"])).reshape(-1, heads, hd)
@@ -84,7 +84,7 @@ def test_ebranchformer_block_matches_torch():
     p = init_block_params(jax.random.PRNGKey(0), 32, 4, 48, 64, 7, 3)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 9, 32)).astype(np.float32)
-    from asr_tpu.layers.conformer import relative_position_embedding
+    from asr_jax.layers.conformer import relative_position_embedding
 
     pe = jnp.asarray(relative_position_embedding(9, 32))
     ours = np.asarray(ebranchformer_block(jnp.asarray(x), p, 4, pe, None, None))

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.models import dolphin as dp
-from asr_tpu.streaming import dolphin_stream as ds
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.models import dolphin as dp
+from asr_jax.streaming import dolphin_stream as ds
 
 BASE = dp.DolphinConfig(
     vocab_size=60, d_model=32, enc_layers=2, enc_heads=4, enc_ffn=48,
@@ -50,8 +50,8 @@ def test_subsampling_alignment_across_chunks():
     rng = np.random.default_rng(1)
     audio = (rng.standard_normal(CFG.advance_samples * 3 + CFG.window_samples) * 2000).astype(np.float32)
 
-    from asr_tpu.frontend.kaldi_fbank import log_mel_fbank
-    from asr_tpu.layers.transformer import dense
+    from asr_jax.frontend.kaldi_fbank import log_mel_fbank
+    from asr_jax.layers.transformer import dense
 
     def subsample(mel):
         x = mel[..., None]
@@ -103,7 +103,7 @@ def test_streaming_session_named_language_forcing():
     rescoring pass); unmapped names raise."""
     import pytest
 
-    from asr_tpu.runtime.streaming_session import DolphinStreamingSession
+    from asr_jax.runtime.streaming_session import DolphinStreamingSession
 
     cat = {"languages": {"zh": 41, "ja": 42}, "regions": {"CN": 44},
            "asr_id": 40, "notimestamp_id": 47, "aliases": {"Japanese": "ja"}}
@@ -149,7 +149,7 @@ def test_append_rows_scatter_free_matches_dus_including_clamp():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from asr_tpu.streaming.dolphin_stream import _append_rows
+    from asr_jax.streaming.dolphin_stream import _append_rows
 
     L, T, H, D, n, B = 3, 12, 2, 4, 5, 4
     rng = np.random.default_rng(0)

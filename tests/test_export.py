@@ -10,8 +10,8 @@ import jax
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from asr_tpu import export as ex
-from asr_tpu.runtime.metadata import ModelMetadata
+from asr_jax import export as ex
+from asr_jax.runtime.metadata import ModelMetadata
 
 
 def test_build_whisper_artifact(tmp_path):
@@ -39,14 +39,14 @@ def test_build_whisper_artifact(tmp_path):
     assert meta.extra["suppress_tokens"] == [5, 6]
     assert meta.resolve_language("en").prompt_token_id == 10
     assert meta.special_token_ids["transcribe"] == 20
-    from asr_tpu.runtime.artifact import load_model
+    from asr_jax.runtime.artifact import load_model
 
     params, _ = load_model(out)
     assert params["decoder"]["embed"].shape == (100, 32)
 
 
 def test_build_sensevoice_artifact(tmp_path):
-    from asr_tpu.models import sensevoice as sv
+    from asr_jax.models import sensevoice as sv
     from tests.test_loaders import SV_CFG, _sensevoice_sd
 
     rng = np.random.default_rng(0)
@@ -71,7 +71,7 @@ def test_build_sensevoice_artifact(tmp_path):
 def test_build_paraformer_artifact_end_to_end(tmp_path):
     """Synthetic FunASR folder -> artifact -> CLI session -> transcribe."""
     from tests.test_loaders import PF_CFG, _paraformer_sd
-    from asr_tpu.cli import _build_session
+    from asr_jax.cli import _build_session
 
     rng = np.random.default_rng(3)
     src = tmp_path / "paraformer-large"
@@ -99,7 +99,7 @@ def test_build_paraformer_artifact_end_to_end(tmp_path):
 def test_build_firered_artifact_end_to_end(tmp_path):
     import jax.numpy as jnp
 
-    from asr_tpu.cli import _build_session
+    from asr_jax.cli import _build_session
     from tests.test_firered import TINY, _firered_sd
 
     rng = np.random.default_rng(3)

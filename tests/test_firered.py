@@ -8,10 +8,10 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.frontend.kaldi_fbank import KaldiFbankConfig
-from asr_tpu.frontend.mel_banks import htk_mel_banks
-from asr_tpu.models import firered as fr
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.frontend.kaldi_fbank import KaldiFbankConfig
+from asr_jax.frontend.mel_banks import htk_mel_banks
+from asr_jax.models import firered as fr
 
 TINY = fr.FireRedConfig(
     vocab_size=60, d_model=32, enc_layers=2, enc_heads=4, conv_kernel=9,
@@ -38,7 +38,7 @@ def test_fbank_povey_htk_vs_naive():
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal(8000) * 3000).astype(np.float32)
     cfg = KaldiFbankConfig(window="povey", mel_style="htk")
-    from asr_tpu.frontend.kaldi_fbank import log_mel_fbank
+    from asr_jax.frontend.kaldi_fbank import log_mel_fbank
 
     n = cfg.num_frames(len(audio))
     ours = np.asarray(log_mel_fbank(jnp.asarray(audio), cfg, n))
@@ -158,7 +158,7 @@ def _firered_sd(cfg, rng):
 
 
 def test_firered_loader_mapping_and_forward():
-    from asr_tpu.loaders import firered as fl
+    from asr_jax.loaders import firered as fl
 
     rng = np.random.default_rng(7)
     sd = _firered_sd(TINY, rng)
@@ -191,7 +191,7 @@ def test_firered_loader_mapping_and_forward():
 
 
 def test_firered_cmvn_stats_parse(tmp_path):
-    from asr_tpu.loaders.firered import parse_kaldi_cmvn_stats
+    from asr_jax.loaders.firered import parse_kaldi_cmvn_stats
 
     rng = np.random.default_rng(0)
     x = rng.standard_normal((1000, 4)) * 3.0 + 1.5

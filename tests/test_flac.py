@@ -5,7 +5,7 @@ load_audio integration and the HTTP body sniffer."""
 import numpy as np
 import pytest
 
-from asr_tpu.runtime.flac import read_flac
+from asr_jax.runtime.flac import read_flac
 
 
 class _BitWriter:
@@ -175,7 +175,7 @@ def test_8bit_depth_scales_to_int16_range(tmp_path):
 
 
 def test_load_audio_flac_resamples(tmp_path):
-    from asr_tpu.runtime.audio import load_audio
+    from asr_jax.runtime.audio import load_audio
 
     rng = np.random.default_rng(2)
     a = rng.integers(-2000, 2000, 160).astype(np.int64)
@@ -186,7 +186,7 @@ def test_load_audio_flac_resamples(tmp_path):
 
 
 def test_http_body_sniffer_decodes_flac_and_rejects_junk():
-    from asr_tpu.parallel.http_server import decode_audio_bytes
+    from asr_jax.parallel.http_server import decode_audio_bytes
 
     rng = np.random.default_rng(3)
     a = rng.integers(-2000, 2000, 64).astype(np.int64)
@@ -207,7 +207,7 @@ def test_bad_magic_raises(tmp_path):
 def test_native_flac_decoder_matches_python(tmp_path):
     """The C++ decoder (native.flac_decode) must be bit-identical to the
     pure-Python reference on every subframe kind and stereo mode."""
-    from asr_tpu import native
+    from asr_jax import native
 
     if not native.available():
         pytest.skip("native toolchain unavailable")

@@ -5,9 +5,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.layers import qwen3
-from asr_tpu.models import forced_aligner as fa
-from asr_tpu.models import qwen_asr as qa
+from asr_jax.layers import qwen3
+from asr_jax.models import forced_aligner as fa
+from asr_jax.models import qwen_asr as qa
 
 
 def test_fix_timestamps_monotone_repair():
@@ -62,7 +62,7 @@ def test_nar_forward_shapes():
 
 
 def test_word_units_splitter():
-    from asr_tpu.runtime.aligner_session import word_units
+    from asr_jax.runtime.aligner_session import word_units
 
     assert word_units("Hello, world!") == ["Hello", "world"]
     assert word_units("don't stop") == ["don't", "stop"]
@@ -73,7 +73,7 @@ def test_word_units_splitter():
 
 
 def test_word_units_japanese_script_segmenter():
-    from asr_tpu.runtime.aligner_session import (
+    from asr_jax.runtime.aligner_session import (
         word_units_for_language,
         word_units_japanese,
     )
@@ -94,7 +94,7 @@ def test_word_units_japanese_script_segmenter():
 
 
 def test_word_units_japanese_mixed_scripts():
-    from asr_tpu.runtime.aligner_session import word_units_japanese
+    from asr_jax.runtime.aligner_session import word_units_japanese
 
     # hiragana run after katakana starts its own unit (no okurigana
     # attachment across non-kanji scripts); a kanji after attached
@@ -105,9 +105,9 @@ def test_word_units_japanese_mixed_scripts():
 def test_aligner_session_end_to_end():
     import jax
     import numpy as np
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.aligner_session import QwenAlignerSession
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.aligner_session import QwenAlignerSession
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -143,10 +143,10 @@ def test_aligner_session_with_quantized_embeddings():
     QuantizedEmbedding gather instead of jnp.asarray (regression)."""
     import jax
     import numpy as np
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.quant.quantize import quantize_embedding
-    from asr_tpu.runtime.aligner_session import QwenAlignerSession
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.quant.quantize import quantize_embedding
+    from asr_jax.runtime.aligner_session import QwenAlignerSession
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -178,7 +178,7 @@ def test_word_units_korean_eojeol_and_language_dispatch():
     """Korean alignment units are space-delimited eojeol (the reference's
     untrained-LTokenizer equivalent); language dispatch routes ja -> the
     script segmenter and ko/unknown -> the default splitter."""
-    from asr_tpu.runtime.aligner_session import (
+    from asr_jax.runtime.aligner_session import (
         word_units, word_units_for_language,
     )
 

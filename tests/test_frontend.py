@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from asr_tpu.frontend import (
+from asr_jax.frontend import (
     KaldiFbankConfig,
     WhisperMelConfig,
     apply_cmvn_addmul,

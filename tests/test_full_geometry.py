@@ -17,8 +17,8 @@ pytestmark = pytest.mark.slow
 def test_whisper_turbo_geometry_parity():
     """whisper-large-v3-turbo geometry: encoder 32x1280 over the full 1500
     positions + 4-layer decoder prefill, HF torch vs JAX."""
-    from asr_tpu.loaders.whisper_hf import config_from_hf, params_from_state_dict
-    from asr_tpu.models import whisper as wh
+    from asr_jax.loaders.whisper_hf import config_from_hf, params_from_state_dict
+    from asr_jax.models import whisper as wh
 
     hf_cfg = transformers.WhisperConfig(
         vocab_size=51866, d_model=1280, encoder_layers=32, decoder_layers=4,
@@ -55,8 +55,8 @@ def test_whisper_turbo_geometry_parity():
 def test_qwen3_06b_geometry_parity():
     """Qwen3-0.6B geometry (28 layers x 1024, GQA 16/8, vocab 151936):
     prefill logits + 4 greedy steps vs HF torch."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.loaders.qwen3_hf import config_from_hf, params_from_state_dict
+    from asr_jax.layers import qwen3
+    from asr_jax.loaders.qwen3_hf import config_from_hf, params_from_state_dict
 
     hf_cfg = transformers.Qwen3Config(
         vocab_size=151936, hidden_size=1024, intermediate_size=3072,
@@ -141,7 +141,7 @@ def test_sensevoice_small_geometry_parity():
     3-token system prompt prepend, SANM stacks with after/tp norms."""
     import torch
 
-    from asr_tpu.models import sensevoice as sv
+    from asr_jax.models import sensevoice as sv
 
     cfg = sv.SenseVoiceConfig()  # real SenseVoiceSmall geometry defaults
     assert (cfg.hidden, cfg.ffn_dim, cfg.num_encoders, cfg.num_tp_encoders) == \
@@ -202,7 +202,7 @@ def test_firered_aed_l_geometry_parity():
     import torch
     import torch.nn.functional as F
 
-    from asr_tpu.models import firered as fr
+    from asr_jax.models import firered as fr
 
     cfg = fr.FireRedConfig()  # real AED-L geometry defaults
     assert (cfg.d_model, cfg.enc_layers, cfg.dec_layers, cfg.enc_heads) == (1280, 16, 16, 20)
@@ -358,7 +358,7 @@ def test_dolphin_small_geometry_parity():
     import torch
     import torch.nn.functional as F
 
-    from asr_tpu.models import dolphin as dp
+    from asr_jax.models import dolphin as dp
 
     cfg = dp.DolphinConfig()  # real dolphin-small geometry defaults
     assert (cfg.d_model, cfg.enc_layers, cfg.cgmlp_dim, cfg.dec_layers) == (512, 12, 2048, 6)
@@ -501,9 +501,9 @@ def test_paraformer_large_geometry_parity():
     import torch
     import torch.nn.functional as F
 
-    from asr_tpu.decode.cif import cif_fire
-    from asr_tpu.models import paraformer as pf
-    from asr_tpu.models.sensevoice import sinusoid_position_encoding
+    from asr_jax.decode.cif import cif_fire
+    from asr_jax.models import paraformer as pf
+    from asr_jax.models.sensevoice import sinusoid_position_encoding
 
     cfg = pf.ParaformerConfig()  # real paraformer-large-zh geometry
     assert (cfg.hidden, cfg.num_encoders, cfg.num_decoders, cfg.vocab_size) == (512, 49, 16, 8404)
@@ -620,7 +620,7 @@ def test_nemotron_06b_geometry_parity():
     import torch
     import torch.nn.functional as F
 
-    from asr_tpu.models import nemotron as nm
+    from asr_jax.models import nemotron as nm
 
     cfg = nm.NemotronConfig()  # real 0.6B geometry defaults
     assert (cfg.d_model, cfg.num_layers, cfg.num_heads, cfg.ffn_dim) == (1024, 24, 8, 4096)
@@ -753,7 +753,7 @@ def test_zipformer2_layer_geometry_parity_and_full_step():
     streaming encoder_step + greedy chunk runs finite and shape-correct."""
     import torch
 
-    from asr_tpu.models import zipformer as zf
+    from asr_jax.models import zipformer as zf
 
     cfg = zf.ZipformerConfig()  # real X-ASR geometry defaults
     s = int(np.argmax(cfg.encoder_dim))
@@ -870,7 +870,7 @@ def test_parakeet_06b_geometry_forward():
     full-size jitted forward is finite and shape-correct (no HF torch
     modeling exists for this arch; tiny-geometry torch parity lives in
     test_parakeet.py)."""
-    from asr_tpu.models import parakeet as pk
+    from asr_jax.models import parakeet as pk
 
     cfg = pk.ParakeetConfig()  # real 0.6B geometry defaults
     params = pk.init_params(cfg, jax.random.PRNGKey(0))

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.layers import qwen3
-from asr_tpu.loaders.qwen3_hf import config_from_hf, params_from_state_dict
-from asr_tpu.models import fun_asr_nano as fn
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.layers import qwen3
+from asr_jax.loaders.qwen3_hf import config_from_hf, params_from_state_dict
+from asr_jax.models import fun_asr_nano as fn
 
 TINY = fn.FunAsrNanoConfig(
     hidden=32, num_heads=4, head_dim=8, ffn_dim=48,

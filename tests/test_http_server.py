@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import jax
 
-from asr_tpu.parallel.http_server import SessionServer, decode_wav_bytes, start_background
+from asr_jax.parallel.http_server import SessionServer, decode_wav_bytes, start_background
 
 
 class _Tok:
@@ -33,8 +33,8 @@ def _wav_bytes(samples: np.ndarray, rate: int = 16000) -> bytes:
 
 
 def _sensevoice_session():
-    from asr_tpu.models import sensevoice as sv
-    from asr_tpu.runtime.session import SenseVoiceSession
+    from asr_jax.models import sensevoice as sv
+    from asr_jax.runtime.session import SenseVoiceSession
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -112,9 +112,9 @@ def test_http_round_trip_and_batching():
 
 def test_windowed_transcribe_batch_matches_individual(tmp_path):
     """transcribe_batch on a windowed family == per-file transcribe."""
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import parakeet as pk
-    from asr_tpu.runtime.transducer_session import ParakeetSession
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import parakeet as pk
+    from asr_jax.runtime.transducer_session import ParakeetSession
 
     cfg = pk.ParakeetConfig(
         vocab_size=40, blank_id=39, d_model=64, num_layers=1, num_heads=4,
@@ -168,9 +168,9 @@ def test_overlength_llm_request_chunks_not_truncates():
     path must still transcribe past the first window (regression: the old
     session.transcribe fallback silently truncated at max_samples while
     reporting windows=sliding)."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -236,9 +236,9 @@ def test_session_server_qwen_llm_roundtrip():
     exposes the (B, W) -> (generated tokens, counts) surface (batched
     left-padded lockstep decode), so two concurrent requests coalesce into
     one device dispatch and decode to the same text as direct calls."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -277,9 +277,9 @@ def test_session_server_forwards_language_to_qwen():
     """serve --language must change the Qwen prompt (regression: _forward
     had no language parameter, so the server's signature check silently
     dropped the flag and every request auto-detected)."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -315,7 +315,7 @@ def test_session_server_forwards_language_to_qwen():
 def test_join_window_texts_boundaries():
     """Multi-window LLM transcripts: space inserted between ASCII word
     boundaries, never inside CJK text, never doubled around punctuation."""
-    from asr_tpu.parallel.http_server import _join_window_texts
+    from asr_jax.parallel.http_server import _join_window_texts
 
     assert _join_window_texts(["meeting today", "The next item"]) == \
         "meeting today The next item"

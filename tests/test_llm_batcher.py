@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.layers import qwen3
-from asr_tpu.models import qwen_asr as qa
-from asr_tpu.parallel.llm_batcher import ContinuousLlmBatcher
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.layers import qwen3
+from asr_jax.models import qwen_asr as qa
+from asr_jax.parallel.llm_batcher import ContinuousLlmBatcher
 
 CFG = qwen3.Qwen3Config(
     vocab_size=96, hidden=48, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -281,7 +281,7 @@ def test_tensor_parallel_batcher_identity():
     weight shards + head-sharded KV through the SAME jitted step must
     produce identical ids to the unsharded batcher — including a mid-run
     join and slot reuse."""
-    from asr_tpu.parallel import mesh as pmesh
+    from asr_jax.parallel import mesh as pmesh
 
     params = _params()
     rng = np.random.default_rng(11)
@@ -312,7 +312,7 @@ def test_tensor_parallel_batcher_identity():
 
 
 def test_tensor_parallel_requires_divisible_heads():
-    from asr_tpu.parallel import mesh as pmesh
+    from asr_jax.parallel import mesh as pmesh
     import pytest
 
     with pytest.raises(ValueError, match="divide"):
@@ -323,7 +323,7 @@ def test_tensor_parallel_requires_divisible_heads():
 def test_tensor_parallel_composes_with_steps_per_tick():
     """tp=2 AND steps_per_tick=3 (the scan-fused step under GSPMD): same
     ids as the plain unsharded per-step engine."""
-    from asr_tpu.parallel import mesh as pmesh
+    from asr_jax.parallel import mesh as pmesh
 
     params = _params()
     prompt = [3, 50, 12, 77, 8]

@@ -14,7 +14,7 @@ import numpy as np
 import jax
 import pytest
 
-from asr_tpu.parallel.llm_server import (
+from asr_jax.parallel.llm_server import (
     ContinuousSessionServer, start_background_continuous)
 
 
@@ -34,9 +34,9 @@ def _wav_bytes(samples: np.ndarray, rate: int = 16000) -> bytes:
 
 
 def _qwen_session(max_new_tokens=4, max_seconds=0.5):
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1,
                              num_heads=4, num_kv_heads=2, head_dim=16,
@@ -57,7 +57,7 @@ def _qwen_session(max_new_tokens=4, max_seconds=0.5):
 def test_prompt_embeds_matches_forward_front_half():
     """Session.prompt_embeds == the front half of the proven qa.forward
     path (same audio, same prompt)."""
-    from asr_tpu.models import qwen_asr as qa
+    from asr_jax.models import qwen_asr as qa
     import jax.numpy as jnp
 
     sess = _qwen_session()
@@ -202,9 +202,9 @@ def test_continuous_http_round_trip():
 def test_fun_asr_nano_llm_continuous_surface():
     """FunAsrNanoLlmSession exposes the same continuous surface; output
     matches its own transcribe."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import fun_asr_nano as fn
-    from asr_tpu.runtime.qwen_session import (FunAsrNanoLlmSession,
+    from asr_jax.layers import qwen3
+    from asr_jax.models import fun_asr_nano as fn
+    from asr_jax.runtime.qwen_session import (FunAsrNanoLlmSession,
                                               QwenPromptTemplate)
 
     lcfg = qwen3.Qwen3Config(vocab_size=96, hidden=48, num_layers=1,
@@ -245,7 +245,7 @@ def test_continuous_rejects_non_llm_session():
 def test_cli_serve_continuous_rejects_non_llm(tmp_path, monkeypatch):
     """serve --continuous on a non-LLM artifact exits with a clear error
     instead of crashing in the engine."""
-    from asr_tpu import cli
+    from asr_jax import cli
 
     sess = object.__new__(type("S", (), {}))  # no prompt_embeds
 
@@ -318,7 +318,6 @@ def test_continuous_server_tensor_parallel_identity():
         assert st["tensor_parallel"] == 2
         assert st["replicas"] == 2
         assert st["requests_served"] == 4
-        assert st["step_kernel"] == "rowwise"  # megakernel is single-chip
     finally:
         srv.close()
 

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.loaders import funasr
-from asr_tpu.models import paraformer as pf
-from asr_tpu.models import sensevoice as sv
+from asr_jax.loaders import funasr
+from asr_jax.models import paraformer as pf
+from asr_jax.models import sensevoice as sv
 
 SV_CFG = sv.SenseVoiceConfig(
     vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -221,8 +221,8 @@ def _dolphin_sd(cfg, rng):
 
 
 def test_dolphin_espnet_mapping(tmp_path):
-    from asr_tpu.loaders import dolphin_espnet
-    from asr_tpu.models import dolphin as dp
+    from asr_jax.loaders import dolphin_espnet
+    from asr_jax.models import dolphin as dp
 
     cfg = dp.DolphinConfig(
         vocab_size=60, d_model=32, enc_layers=1, enc_heads=4, enc_ffn=48,

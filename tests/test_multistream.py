@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.models import paraformer as pf
-from asr_tpu.streaming import multistream as ms
-from asr_tpu.streaming import paraformer_online as po
-from asr_tpu.runtime.streaming_session import ParaformerStreamingSession
+from asr_jax.models import paraformer as pf
+from asr_jax.streaming import multistream as ms
+from asr_jax.streaming import paraformer_online as po
+from asr_jax.runtime.streaming_session import ParaformerStreamingSession
 
 TINY_BASE = pf.ParaformerConfig(
     vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -75,7 +75,7 @@ def test_multistream_reset_isolates_streams():
 
 
 def test_zipformer_multistream_matches_sequential():
-    from asr_tpu.models import zipformer as zf
+    from asr_jax.models import zipformer as zf
 
     cfg = zf.ZipformerConfig(
         vocab_size=40, downsampling_factor=(1, 2), num_encoder_layers=(1, 1),
@@ -109,8 +109,8 @@ def test_zipformer_multistream_matches_sequential():
 
 
 def test_dolphin_multistream_matches_sequential():
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.streaming import dolphin_stream as ds
+    from asr_jax.models import dolphin as dp
+    from asr_jax.streaming import dolphin_stream as ds
 
     base = dp.DolphinConfig(
         vocab_size=60, d_model=32, enc_layers=2, enc_heads=4, enc_ffn=48,
@@ -142,10 +142,10 @@ def test_dolphin_multistream_matches_sequential():
 
 
 def test_nemotron_multistream_matches_sequential():
-    from asr_tpu.models import nemotron as nm
-    from asr_tpu.streaming import nemotron_stream as ns
+    from asr_jax.models import nemotron as nm
+    from asr_jax.streaming import nemotron_stream as ns
 
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
 
     base = nm.NemotronConfig(
         vocab_size=30, d_model=32, num_layers=2, num_heads=4, ffn_dim=48,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from asr_tpu import native
+from asr_jax import native
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="g++ toolchain unavailable")
 
@@ -51,9 +51,11 @@ def test_upsample_length_convention():
 
 
 def test_audio_ingest_uses_native_when_available():
-    from asr_tpu.runtime import audio as audio_io
+    from asr_jax.runtime import audio as audio_io
 
-    out = audio_io.load_audio("/root/reference/Test_Examples/en/test_sample.wav", 16000)
+    from asr_jax.runtime.examples import fixture_path
+
+    out = audio_io.load_audio(fixture_path("en/test_sample.wav"), 16000)
     assert out.ndim == 1 and out.dtype == np.float32
 
 
@@ -82,7 +84,7 @@ def test_malformed_wav_rejected(tmp_path):
     p3 = tmp_path / "ok.wav"
     p3.write_bytes(ok)
 
-    from asr_tpu.runtime.audio import load_audio_batch
+    from asr_jax.runtime.audio import load_audio_batch
 
     buf, valid = load_audio_batch([str(p1), str(p2), str(p3)], 16000, 64)
     assert valid[0] == 0                      # fmt too small -> silent zero row
@@ -103,7 +105,7 @@ def test_hostile_fmt_chunk_size_rejected(tmp_path):
     p = tmp_path / "hostile_fmt.wav"
     p.write_bytes(hostile)
 
-    from asr_tpu.runtime.audio import load_audio_batch
+    from asr_jax.runtime.audio import load_audio_batch
 
     buf, valid = load_audio_batch([str(p)], 16000, 64)
     assert valid[0] == 0

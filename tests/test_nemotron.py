@@ -8,9 +8,9 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.decode.rnnt import rnnt_greedy
-from asr_tpu.frontend.nemo_mel import NemoMelConfig
-from asr_tpu.models import nemotron as nm
+from asr_jax.decode.rnnt import rnnt_greedy
+from asr_jax.frontend.nemo_mel import NemoMelConfig
+from asr_jax.models import nemotron as nm
 
 TINY = nm.NemotronConfig(
     vocab_size=30, d_model=64, num_layers=2, num_heads=4, ffn_dim=96,

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 yaml = pytest.importorskip("yaml")
 
-from asr_tpu.frontend.nemo_mel import NemoMelConfig
-from asr_tpu.models import nemotron as nm
+from asr_jax.frontend.nemo_mel import NemoMelConfig
+from asr_jax.models import nemotron as nm
 
 TINY = nm.NemotronConfig(
     vocab_size=30, d_model=64, num_layers=2, num_heads=4, ffn_dim=96,
@@ -168,7 +168,7 @@ def _tiny_spm_proto(pieces):
 
 
 def test_read_archive_and_config(tmp_path):
-    from asr_tpu.loaders import nemotron_nemo as nn
+    from asr_jax.loaders import nemotron_nemo as nn
 
     rng = np.random.default_rng(0)
     sd_in = _nemotron_sd(TINY, rng)
@@ -186,7 +186,7 @@ def test_read_archive_and_config(tmp_path):
 
 def test_mapping_prompt_collapse_exact(tmp_path):
     """The one-hot prompt fold must equal the original concat-GEMM."""
-    from asr_tpu.loaders import nemotron_nemo as nn
+    from asr_jax.loaders import nemotron_nemo as nn
 
     rng = np.random.default_rng(1)
     sd = _nemotron_sd(TINY, rng)
@@ -210,9 +210,9 @@ def test_mapping_prompt_collapse_exact(tmp_path):
 
 
 def test_builder_both_modes(tmp_path):
-    from asr_tpu import export as ex
-    from asr_tpu.cli import _build_session
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax import export as ex
+    from asr_jax.cli import _build_session
+    from asr_jax.runtime.metadata import ModelMetadata
 
     rng = np.random.default_rng(2)
     nemo = _write_nemo(tmp_path, TINY, _nemotron_sd(TINY, rng))
@@ -235,11 +235,11 @@ def test_dolphin_streaming_builder(tmp_path):
     """Dolphin CN-Dialect-Streaming shares the espnet module tree: the
     offline loader + streaming family stamp must round trip into a
     DolphinStreamingSession."""
-    from asr_tpu import export as ex
-    from asr_tpu.cli import _build_session
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.runtime.metadata import ModelMetadata
-    from asr_tpu.streaming.dolphin_stream import DolphinStreamConfig
+    from asr_jax import export as ex
+    from asr_jax.cli import _build_session
+    from asr_jax.models import dolphin as dp
+    from asr_jax.runtime.metadata import ModelMetadata
+    from asr_jax.streaming.dolphin_stream import DolphinStreamConfig
     from tests.test_loaders import _dolphin_sd
 
     DTINY = dp.DolphinConfig(

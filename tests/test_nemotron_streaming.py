@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.frontend.nemo_mel import NemoMelConfig
-from asr_tpu.models import nemotron as nm
-from asr_tpu.streaming import nemotron_stream as ns
+from asr_jax.frontend.nemo_mel import NemoMelConfig
+from asr_jax.models import nemotron as nm
+from asr_jax.streaming import nemotron_stream as ns
 
 BASE = nm.NemotronConfig(
     vocab_size=30, d_model=32, num_layers=2, num_heads=4, ffn_dim=48,
@@ -48,8 +48,8 @@ def test_streamed_encoder_matches_offline_chunked():
 
 
 def test_rnnt_stream_continuation_matches_offline_decode():
-    from asr_tpu.decode.rnnt import rnnt_greedy
-    from asr_tpu.models.nemotron import joint_step
+    from asr_jax.decode.rnnt import rnnt_greedy
+    from asr_jax.models.nemotron import joint_step
 
     params = nm.init_params(BASE, jax.random.PRNGKey(1))
     rng = np.random.default_rng(1)

@@ -1,6 +1,6 @@
 """OGG/Vorbis ingest validated against the SYSTEM encoder.
 
-The decoder (``asr_tpu/runtime/ogg.py``) is checked against an
+The decoder (``asr_jax/runtime/ogg.py``) is checked against an
 independent implementation: a known signal is encoded with the distro's
 libvorbisenc/libogg (ctypes, same no-pip-deps rule as the decoder) and
 must come back sample-aligned and highly correlated. This is the
@@ -15,7 +15,7 @@ import ctypes.util
 import numpy as np
 import pytest
 
-from asr_tpu.runtime import ogg as oggmod
+from asr_jax.runtime import ogg as oggmod
 
 
 def _dll(*names):
@@ -154,7 +154,7 @@ def test_mono_roundtrip_sample_exact_length(tmp_path):
 
 
 def test_stereo_through_load_audio_downmix_resample(tmp_path):
-    from asr_tpu.runtime.audio import load_audio
+    from asr_jax.runtime.audio import load_audio
 
     rate = 24000
     left = _sine(rate, 0.5, 330.0)
@@ -181,7 +181,7 @@ def test_non_ogg_file_raises(tmp_path):
 
 
 def test_load_audio_batch_decodes_ogg_rows(tmp_path):
-    from asr_tpu.runtime.audio import load_audio_batch
+    from asr_jax.runtime.audio import load_audio_batch
 
     rate = 16000
     sig = _sine(rate, 0.3, 500.0)
@@ -194,7 +194,7 @@ def test_load_audio_batch_decodes_ogg_rows(tmp_path):
 
 
 def test_http_body_sniffer_decodes_ogg(tmp_path):
-    from asr_tpu.parallel.http_server import decode_audio_bytes
+    from asr_jax.parallel.http_server import decode_audio_bytes
 
     rate = 16000
     sig = _sine(rate, 0.4, 620.0)

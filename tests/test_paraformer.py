@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.decode.cif import cif_fire, compensated_cumsum
-from asr_tpu.models import paraformer as pf
+from asr_jax.decode.cif import cif_fire, compensated_cumsum
+from asr_jax.models import paraformer as pf
 
 TINY = pf.ParaformerConfig(
     vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.models import paraformer as pf
-from asr_tpu.streaming import paraformer_online as po
-from asr_tpu.runtime.streaming_session import ParaformerStreamingSession
+from asr_jax.models import paraformer as pf
+from asr_jax.streaming import paraformer_online as po
+from asr_jax.runtime.streaming_session import ParaformerStreamingSession
 
 TINY_BASE = pf.ParaformerConfig(
     vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,

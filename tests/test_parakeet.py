@@ -9,11 +9,11 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from asr_tpu.decode.tdt import tdt_greedy
-from asr_tpu.frontend.nemo_mel import NemoMelConfig, log_mel, per_feature_norm
-from asr_tpu.layers.lstm import init_lstm_params, lstm_step_stack
-from asr_tpu.loaders.parakeet_hf import encoder_params_from_state_dict
-from asr_tpu.models import parakeet as pk
+from asr_jax.decode.tdt import tdt_greedy
+from asr_jax.frontend.nemo_mel import NemoMelConfig, log_mel, per_feature_norm
+from asr_jax.layers.lstm import init_lstm_params, lstm_step_stack
+from asr_jax.loaders.parakeet_hf import encoder_params_from_state_dict
+from asr_jax.models import parakeet as pk
 
 TINY = pk.ParakeetConfig(
     vocab_size=40, blank_id=39, d_model=64, num_layers=2, num_heads=4,
@@ -69,7 +69,7 @@ def naive_nemo_mel(audio: np.ndarray, cfg: NemoMelConfig) -> np.ndarray:
     """Independent step-by-step NeMo mel: preemph -> constant-center-pad
     STFT (symmetric hann zero-padded to n_fft) -> power -> slaney mel ->
     log guard -> drop last frame -> per-feature norm (N-1 var)."""
-    from asr_tpu.frontend.mel_banks import slaney_mel_banks
+    from asr_jax.frontend.mel_banks import slaney_mel_banks
 
     x = audio.astype(np.float64)
     x = x - cfg.preemphasis * np.concatenate([[0.0], x[:-1]])

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from asr_tpu.quant.plan import (
+from asr_jax.quant.plan import (
     OptimizerConfig, Plan, PlanError, apply_plans, plan_for_path, resolve_plan,
 )
-from asr_tpu.quant.quantize import QuantizedLinear
+from asr_jax.quant.quantize import QuantizedLinear
 
 
 def _cfg(**plans):
@@ -111,7 +111,7 @@ def test_apply_plans_skips_depthwise_and_quantizes_embeddings():
     gather-dequant QuantizedEmbedding leaves (the reference quantizes
     Decoder_Embed to Q8 as its own plan row,
     ``Fun_ASR_Nano/Optimize_ONNX.py:107-112``)."""
-    from asr_tpu.quant.quantize import QuantizedEmbedding
+    from asr_jax.quant.quantize import QuantizedEmbedding
 
     rng = np.random.default_rng(2)
     arr = lambda shape: jnp.asarray(rng.standard_normal(shape), jnp.float32)

@@ -1,6 +1,6 @@
 """Stage-activation probes cover EVERY session class (VERDICT r4 #2).
 
-The parity harness (``asr_tpu parity``) rides these probes: when the
+The parity harness (``asr_jax parity``) rides these probes: when the
 BASELINE token-for-token gate finally runs against real checkpoints, the
 first drifting stage localizes a transcript mismatch to
 front-end / encoder / decode without a manual bisect. Reference equivalent:
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import jax
 
-from asr_tpu.runtime.probe import STAGE_ORDER, capture_probe, compare_probes
+from asr_jax.runtime.probe import STAGE_ORDER, capture_probe, compare_probes
 
 
 def _noise(seed, n, scale):
@@ -22,8 +22,8 @@ def _noise(seed, n, scale):
 
 
 def _sensevoice():
-    from asr_tpu.models import sensevoice as sv
-    from asr_tpu.runtime.session import SenseVoiceSession
+    from asr_jax.models import sensevoice as sv
+    from asr_jax.runtime.session import SenseVoiceSession
 
     cfg = sv.SenseVoiceConfig(vocab_size=64, hidden=32, num_heads=4, head_dim=8,
                               ffn_dim=48, num_encoders0=1, num_encoders=1,
@@ -34,8 +34,8 @@ def _sensevoice():
 
 
 def _whisper():
-    from asr_tpu.models import whisper as wh
-    from asr_tpu.runtime.whisper_session import WhisperSession
+    from asr_jax.models import whisper as wh
+    from asr_jax.runtime.whisper_session import WhisperSession
 
     cfg = wh.WhisperConfig(
         vocab_size=96, d_model=32, encoder_layers=1, decoder_layers=1,
@@ -48,8 +48,8 @@ def _whisper():
 
 
 def _firered():
-    from asr_tpu.models import firered as fr
-    from asr_tpu.runtime.transducer_session import FireRedSession
+    from asr_jax.models import firered as fr
+    from asr_jax.runtime.transducer_session import FireRedSession
 
     cfg = fr.FireRedConfig(vocab_size=60, d_model=32, enc_layers=1, enc_heads=4,
                            conv_kernel=9, dec_layers=1, dec_heads=4, dec_ffn=48,
@@ -60,8 +60,8 @@ def _firered():
 
 
 def _paraformer():
-    from asr_tpu.models import paraformer as pf
-    from asr_tpu.runtime.transducer_session import ParaformerSession
+    from asr_jax.models import paraformer as pf
+    from asr_jax.runtime.transducer_session import ParaformerSession
 
     cfg = pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4, head_dim=8,
                               ffn_dim=48, num_encoders0=1, num_encoders=1,
@@ -73,8 +73,8 @@ def _paraformer():
 
 
 def _dolphin():
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.runtime.transducer_session import DolphinSession
+    from asr_jax.models import dolphin as dp
+    from asr_jax.runtime.transducer_session import DolphinSession
 
     cfg = dp.DolphinConfig(vocab_size=60, d_model=32, enc_layers=1, enc_heads=4,
                            enc_ffn=48, cgmlp_dim=48, csgu_kernel=5,
@@ -87,9 +87,9 @@ def _dolphin():
 
 
 def _parakeet():
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import parakeet as pk
-    from asr_tpu.runtime.transducer_session import ParakeetSession
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import parakeet as pk
+    from asr_jax.runtime.transducer_session import ParakeetSession
 
     cfg = pk.ParakeetConfig(vocab_size=40, d_model=32, num_layers=1,
                             num_heads=4, ffn_dim=48, conv_kernel=5,
@@ -101,9 +101,9 @@ def _parakeet():
 
 
 def _nemotron():
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import nemotron as nm
-    from asr_tpu.runtime.transducer_session import NemotronSession
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import nemotron as nm
+    from asr_jax.runtime.transducer_session import NemotronSession
 
     cfg = nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=1,
                             num_heads=4, ffn_dim=48, conv_kernel=5,
@@ -117,8 +117,8 @@ def _nemotron():
 
 
 def _funasr_ctc():
-    from asr_tpu.models import fun_asr_nano as fn
-    from asr_tpu.runtime.transducer_session import FunAsrNanoCtcSession
+    from asr_jax.models import fun_asr_nano as fn
+    from asr_jax.runtime.transducer_session import FunAsrNanoCtcSession
 
     cfg = _funasr_cfg()
     sess = FunAsrNanoCtcSession(fn.init_params(cfg, jax.random.PRNGKey(7)),
@@ -127,7 +127,7 @@ def _funasr_ctc():
 
 
 def _llm_cfg():
-    from asr_tpu.layers import qwen3
+    from asr_jax.layers import qwen3
 
     return qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1,
                              num_heads=4, num_kv_heads=2, head_dim=16,
@@ -135,7 +135,7 @@ def _llm_cfg():
 
 
 def _funasr_cfg():
-    from asr_tpu.models import fun_asr_nano as fn
+    from asr_jax.models import fun_asr_nano as fn
 
     return fn.FunAsrNanoConfig(hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
                                num_encoders0=1, num_encoders=1,
@@ -147,9 +147,9 @@ def _funasr_cfg():
 
 
 def _qwen_asr():
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession
 
     lcfg = _llm_cfg()
     cfg = qa.QwenAsrConfig(n_mels=16, tower_dim=32, tower_layers=1,
@@ -163,9 +163,9 @@ def _qwen_asr():
 
 
 def _funasr_llm():
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import fun_asr_nano as fn
-    from asr_tpu.runtime.qwen_session import FunAsrNanoLlmSession
+    from asr_jax.layers import qwen3
+    from asr_jax.models import fun_asr_nano as fn
+    from asr_jax.runtime.qwen_session import FunAsrNanoLlmSession
 
     cfg = _funasr_cfg()
     sess = FunAsrNanoLlmSession(fn.init_params(cfg, jax.random.PRNGKey(10)),
@@ -175,10 +175,10 @@ def _funasr_llm():
 
 
 def _qwen_aligner():
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import forced_aligner as fa
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.aligner_session import QwenAlignerSession
+    from asr_jax.layers import qwen3
+    from asr_jax.models import forced_aligner as fa
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.aligner_session import QwenAlignerSession
 
     lcfg = _llm_cfg()
     cfg = qa.QwenAsrConfig(n_mels=16, tower_dim=32, tower_layers=1,
@@ -198,9 +198,9 @@ def _qwen_aligner():
 
 
 def _paraformer_streaming():
-    from asr_tpu.models import paraformer as pf
-    from asr_tpu.runtime.streaming_session import ParaformerStreamingSession
-    from asr_tpu.streaming import paraformer_online as po
+    from asr_jax.models import paraformer as pf
+    from asr_jax.runtime.streaming_session import ParaformerStreamingSession
+    from asr_jax.streaming import paraformer_online as po
 
     base = pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4,
                                head_dim=8, ffn_dim=48, num_encoders0=1,
@@ -214,8 +214,8 @@ def _paraformer_streaming():
 
 
 def _xasr_streaming():
-    from asr_tpu.models import zipformer as zf
-    from asr_tpu.runtime.streaming_session import XasrStreamingSession
+    from asr_jax.models import zipformer as zf
+    from asr_jax.runtime.streaming_session import XasrStreamingSession
 
     cfg = zf.ZipformerConfig(
         vocab_size=40, downsampling_factor=(1, 2), num_encoder_layers=(1, 1),
@@ -228,10 +228,10 @@ def _xasr_streaming():
 
 
 def _nemotron_streaming():
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import nemotron as nm
-    from asr_tpu.runtime.streaming_session import NemotronStreamingSession
-    from asr_tpu.streaming import nemotron_stream as ns
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import nemotron as nm
+    from asr_jax.runtime.streaming_session import NemotronStreamingSession
+    from asr_jax.streaming import nemotron_stream as ns
 
     base = nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=2,
                              num_heads=4, ffn_dim=48, conv_kernel=5,
@@ -246,9 +246,9 @@ def _nemotron_streaming():
 
 
 def _dolphin_streaming():
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.runtime.streaming_session import DolphinStreamingSession
-    from asr_tpu.streaming import dolphin_stream as ds
+    from asr_jax.models import dolphin as dp
+    from asr_jax.runtime.streaming_session import DolphinStreamingSession
+    from asr_jax.streaming import dolphin_stream as ds
 
     base = dp.DolphinConfig(vocab_size=60, d_model=32, enc_layers=2,
                             enc_heads=4, enc_ffn=48, cgmlp_dim=64,
@@ -305,7 +305,7 @@ def test_capture_compare_roundtrip(family):
 def test_spread_field_localizes_tail_drift():
     """A drift confined to late elements (past the head sample) is caught
     by the strided spread sample (r4 advisor finding)."""
-    from asr_tpu.runtime.probe import summarize
+    from asr_jax.runtime.probe import summarize
 
     a = np.zeros(4096, np.float32)
     want = summarize(a)

@@ -1,15 +1,15 @@
 """Quantization: RTN/refined block quantization error, pytree walking,
-dequant-fused matmul (XLA + Pallas-interpret) correctness, bf16 cast,
-quantized model end-to-end."""
+quantized matmul correctness in both matmul modes, bf16 cast, quantized
+model end-to-end."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.layers.transformer import dense
-from asr_tpu.ops.quant_matmul import quant_dense, quant_matmul_pallas
-from asr_tpu.quant.quantize import (
+from asr_jax.layers.transformer import dense
+from asr_jax.ops.quant_matmul import _xla_quant_dense, quant_dense, set_quant_config
+from asr_jax.quant.quantize import (
     cast_pytree,
     dequantize_weight,
     quantization_error,
@@ -39,7 +39,7 @@ def test_q4_error_reasonable():
     assert quantization_error(w, qleaf) < 0.12
 
 
-def test_quant_dense_matches_dequant_matmul():
+def test_quant_dense_matches_dequant_matmul(quant_mm_f32):
     rng = np.random.default_rng(2)
     w = jnp.asarray(rng.standard_normal((128, 96)).astype(np.float32))
     x = jnp.asarray(rng.standard_normal((2, 5, 128)).astype(np.float32))
@@ -52,22 +52,8 @@ def test_quant_dense_matches_dequant_matmul():
     np.testing.assert_allclose(np.asarray(out2), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
-def test_pallas_kernel_interpret_matches_xla():
-    rng = np.random.default_rng(3)
-    m, k, n, block = 256, 512, 256, 128
-    w = jnp.asarray(rng.standard_normal((k, n)).astype(np.float32))
-    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32))
-    qleaf = quantize_linear(w, bits=8, block=block)
-    ref = x @ dequantize_weight(qleaf)
-    out = quant_matmul_pallas(
-        x, qleaf["q"], qleaf["scale"], qleaf["zero"], block,
-        tile_m=128, tile_n=128, tile_k=256, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-
 def test_quantize_pytree_walks_and_model_runs():
-    from asr_tpu.models import sensevoice as sv
+    from asr_jax.models import sensevoice as sv
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=300, hidden=64, num_heads=4, head_dim=16, ffn_dim=256,
@@ -75,7 +61,7 @@ def test_quantize_pytree_walks_and_model_runs():
     )
     params = sv.init_params(cfg, jax.random.PRNGKey(0))
     qparams = quantize_pytree(params, bits=8, block=64, min_size=4096)
-    from asr_tpu.quant.quantize import QuantizedLinear
+    from asr_jax.quant.quantize import QuantizedLinear
 
     # ffn weights (64*256 = 16k >= 4096) got quantized
     assert isinstance(qparams["encoders"][0]["ffn"]["w1"], QuantizedLinear)
@@ -94,7 +80,7 @@ def test_cast_pytree_bf16():
 
 def test_quantized_sensevoice_forward_agrees():
     """A q8-quantized SenseVoice must produce near-identical CTC tokens."""
-    from asr_tpu.models import sensevoice as sv
+    from asr_jax.models import sensevoice as sv
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=300, hidden=64, num_heads=4, head_dim=16, ffn_dim=256,
@@ -113,9 +99,8 @@ def test_quantized_sensevoice_forward_agrees():
     assert agree > 0.7
 
 
-def test_packed_int4_roundtrip_and_matmul():
-    from asr_tpu.quant.quantize import quantize_linear, dequantize_weight, pack4_halves, unpack4_halves
-    from asr_tpu.ops.quant_matmul import quant_matmul_pallas_p4
+def test_packed_int4_roundtrip_and_matmul(quant_mm_f32):
+    from asr_jax.quant.quantize import quantize_linear, dequantize_weight
 
     rng = np.random.default_rng(9)
     k, n, block = 2048, 256, 128
@@ -130,17 +115,14 @@ def test_packed_int4_roundtrip_and_matmul():
 
     x = jnp.asarray(rng.standard_normal((128, k)).astype(np.float32))
     ref = x @ dequantize_weight(qleaf)
-    out = quant_matmul_pallas_p4(
-        x, qleaf["q"], qleaf["scale"], qleaf["zero"], block,
-        tile_m=128, tile_n=128, tile_k2=1024, interpret=True,
-    )
+    out = _xla_quant_dense(x, qleaf)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
 def test_packed_artifact_roundtrip(tmp_path):
-    from asr_tpu.quant.quantize import quantize_linear, dequantize_weight
-    from asr_tpu.runtime.artifact import save_model, load_model
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax.quant.quantize import quantize_linear, dequantize_weight
+    from asr_jax.runtime.artifact import save_model, load_model
+    from asr_jax.runtime.metadata import ModelMetadata
 
     rng = np.random.default_rng(10)
     w = jnp.asarray(rng.standard_normal((256, 64)).astype(np.float32))
@@ -154,8 +136,8 @@ def test_packed_artifact_roundtrip(tmp_path):
     )
 
 
-def test_q2_roundtrip_and_pack2():
-    from asr_tpu.quant.quantize import (
+def test_q2_roundtrip_and_pack2(quant_mm_f32):
+    from asr_jax.quant.quantize import (
         dequantize_weight, pack2_quarters, quantize_linear, quantization_error,
         unpack2_quarters,
     )
@@ -184,7 +166,7 @@ def test_q2_roundtrip_and_pack2():
     assert e_u < 0.6
 
     # quant_dense consumes the packed-2-bit leaf via the XLA path
-    from asr_tpu.ops.quant_matmul import quant_dense
+    from asr_jax.ops.quant_matmul import quant_dense
 
     x = jnp.asarray(rng.standard_normal((8, k)).astype(np.float32))
     ref = x @ dequantize_weight(qleaf)
@@ -193,7 +175,7 @@ def test_q2_roundtrip_and_pack2():
 
 
 def test_kquant_objective_beats_rtn_with_outliers():
-    from asr_tpu.quant.quantize import dequantize_weight, quantize_linear
+    from asr_jax.quant.quantize import dequantize_weight, quantize_linear
 
     rng = np.random.default_rng(12)
     k, n, block = 512, 64, 128
@@ -214,28 +196,10 @@ def test_kquant_objective_beats_rtn_with_outliers():
     assert e_kq <= e_rtn * 1.001, (e_kq, e_rtn)
 
 
-def test_pallas_p2_kernel_interpret_matches_xla():
-    from asr_tpu.ops.quant_matmul import quant_matmul_pallas_p2
-    from asr_tpu.quant.quantize import dequantize_weight, quantize_linear
-
-    rng = np.random.default_rng(13)
-    k, n, block = 8192, 256, 256  # k4 = 2048, k4/block = 8 rows (aligned)
-    w = jnp.asarray(rng.standard_normal((k, n)).astype(np.float32))
-    qleaf = quantize_linear(w, bits=2, block=block, pack=True)
-    assert qleaf.packed and qleaf.q.shape == (k // 4, n)
-    x = jnp.asarray(rng.standard_normal((128, k)).astype(np.float32))
-    ref = x @ dequantize_weight(qleaf)
-    out = quant_matmul_pallas_p2(
-        x, qleaf["q"], qleaf["scale"], qleaf["zero"], block,
-        tile_m=128, tile_n=128, tile_k4=2048, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-
 def test_hqq_beats_or_matches_rtn():
     """HQQ zero-point optimization: reconstruction error <= RTN on an
     outlier-heavy weight (the regime HQQ targets)."""
-    from asr_tpu.quant.quantize import quantization_error, quantize_linear
+    from asr_jax.quant.quantize import quantization_error, quantize_linear
 
     rng = np.random.default_rng(0)
     w = rng.standard_normal((256, 64)).astype(np.float32)
@@ -248,8 +212,8 @@ def test_hqq_beats_or_matches_rtn():
 
 
 def test_dynamic_int8_dense_close_to_f32():
-    from asr_tpu.layers.transformer import dense
-    from asr_tpu.quant.quantize import quantize_linear
+    from asr_jax.layers.transformer import dense
+    from asr_jax.quant.quantize import quantize_linear
 
     rng = np.random.default_rng(1)
     w = jnp.asarray(rng.standard_normal((128, 96)).astype(np.float32) * 0.1)
@@ -268,7 +232,7 @@ def test_dynamic_int8_dense_close_to_f32():
 
 
 def test_quantized_embedding_gather_and_tied_logits():
-    from asr_tpu.quant.quantize import embedding_logits, quantize_embedding
+    from asr_jax.quant.quantize import embedding_logits, quantize_embedding
 
     rng = np.random.default_rng(2)
     table = jnp.asarray(rng.standard_normal((50, 64)).astype(np.float32))
@@ -289,9 +253,9 @@ def test_quantized_embedding_gather_and_tied_logits():
 def test_qwen3_runs_with_quantized_embedding():
     """Tied Qwen3 decoder runs with a QuantizedEmbedding for lookup + head,
     and the artifact round trip preserves the leaf."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.quant.quantize import QuantizedEmbedding, quantize_pytree
-    from asr_tpu.runtime.artifact import flatten_pytree, unflatten_pytree
+    from asr_jax.layers import qwen3
+    from asr_jax.quant.quantize import QuantizedEmbedding, quantize_pytree
+    from asr_jax.runtime.artifact import flatten_pytree, unflatten_pytree
 
     cfg = qwen3.Qwen3Config(vocab_size=512, hidden=64, num_layers=1, num_heads=4,
                             num_kv_heads=2, head_dim=16, ffn_dim=96)
@@ -316,9 +280,9 @@ def test_whisper_runs_with_quantized_embedding():
     """Tied Whisper logits route through embedding_logits, so
     quantize_embeddings artifacts transcribe instead of crashing on .T
     (code-review r2 finding)."""
-    from asr_tpu.decode.ar import DecodeConfig
-    from asr_tpu.models import whisper as wh
-    from asr_tpu.quant.quantize import QuantizedEmbedding, quantize_pytree
+    from asr_jax.decode.ar import DecodeConfig
+    from asr_jax.models import whisper as wh
+    from asr_jax.quant.quantize import QuantizedEmbedding, quantize_pytree
 
     cfg = wh.WhisperConfig(
         vocab_size=256, d_model=32, encoder_layers=1, decoder_layers=1,
@@ -341,7 +305,7 @@ def test_penalty_excludes_prompt_slots():
     """Repetition penalty matches the reference's generated-only save_id:
     prompt slots (incl. zero-filled embed-prompt buffers) are never
     penalized (code-review r2 finding on qwen's zero buffer)."""
-    from asr_tpu.decode.strategies import apply_repetition_penalty
+    from asr_jax.decode.strategies import apply_repetition_penalty
 
     logits = jnp.ones((1, 8), jnp.float32)
     buf = jnp.asarray([[0, 0, 0, 5, 6, 0, 0, 0]], jnp.int32)  # prompt=3 zeros, gen=[5,6]
@@ -354,65 +318,13 @@ def test_penalty_excludes_prompt_slots():
     assert out[0, 1] == 1.0
 
 
-def test_pallas_dispatch_pads_ragged_and_tiny_m():
-    """_pallas_quant_dense_2d: M=1 (AR decode step), ragged M (1096 — a
-    batch-8 SenseVoice window count) and tile-aligned M all round-trip
-    through the padded kernel path and match the XLA dequant reference.
-    Regression: uncapped tile_m blew the VMEM scoped limit at real model
-    shapes, and M=1 silently fell back to full f32 dequant per step."""
-    import jax.numpy as jnp
-    from asr_tpu.ops.quant_matmul import _pallas_quant_dense_2d, _plan_tile_m, _xla_quant_dense
-    from asr_tpu.quant.quantize import quantize_linear
-
-    assert _plan_tile_m(1) == (8, 8)
-    assert _plan_tile_m(300) == (256, 512)
-    assert _plan_tile_m(12000) == (256, 12032)
-
-    rng = np.random.default_rng(5)
-    k, n = 512, 256
-    w = jnp.asarray(rng.standard_normal((k, n)).astype(np.float32) * 0.05)
-    for bits, pack in ((8, False), (4, True)):
-        qleaf = quantize_linear(w, bits=bits, block=64 if not pack else 32, pack=pack)
-        if pack and not qleaf["packed"]:
-            continue
-        for m in (1, 9, 300):
-            x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32))
-            got = _pallas_quant_dense_2d(x, qleaf, interpret=True, mm="f32")
-            if got is None:
-                continue
-            want = _xla_quant_dense(x, qleaf)
-            assert got.shape == (m, n)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5)
-
-
-def test_pallas_dispatch_small_block_count_packed():
-    """Qwen3-0.6B layer shapes (K=1024, block=128 -> 4 scale rows per
-    nibble half) must take the Pallas packed path — the old 8-aligned-slice
-    guard silently sent every such layer to the XLA dequant fallback,
-    erasing the quantization bandwidth win in AR decode."""
-    import jax.numpy as jnp
-    from asr_tpu.ops.quant_matmul import _pallas_quant_dense_2d, _xla_quant_dense
-    from asr_tpu.quant.quantize import quantize_linear
-
-    rng = np.random.default_rng(7)
-    for bits, k in ((4, 1024), (2, 1024)):
-        w = jnp.asarray(rng.standard_normal((k, 256)).astype(np.float32) * 0.05)
-        qleaf = quantize_linear(w, bits=bits, block=128, pack=True)
-        assert qleaf["packed"]
-        x = jnp.asarray(rng.standard_normal((1, k)).astype(np.float32))
-        got = _pallas_quant_dense_2d(x, qleaf, interpret=True, mm="f32")
-        assert got is not None, f"int{bits} K={k} fell back to XLA"
-        want = _xla_quant_dense(x, qleaf)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5)
-
-
-def test_quantized_embedding_tied_head_paths_agree():
-    """The Pallas tied-head path (stored (D, V) copy), the blockwise
+def test_quantized_embedding_tied_head_paths_agree(quant_mm_f32):
+    """The tied-head path through the stored (D, V) copy, the blockwise
     einsum fallback, and dense y @ dequant().T all agree; artifact
     roundtrip rebuilds the transposed copy from the stored flag."""
     import jax.numpy as jnp
-    from asr_tpu.quant.quantize import quantize_embedding, embedding_logits
-    from asr_tpu.runtime.artifact import flatten_pytree, unflatten_pytree
+    from asr_jax.quant.quantize import quantize_embedding, embedding_logits
+    from asr_jax.runtime.artifact import flatten_pytree, unflatten_pytree
 
     rng = np.random.default_rng(3)
     v, d = 384, 256
@@ -439,17 +351,16 @@ def test_quantized_embedding_tied_head_paths_agree():
     assert back_nt.q_t is None
 
 
-def test_quantized_embedding_tied_head_q4_packs_nibbles():
+def test_quantized_embedding_tied_head_q4_packs_nibbles(quant_mm_f32):
     """4-bit tied heads store the (D/2, V_pad) NIBBLE-PACKED orientation
-    (the head is the largest HBM read of a decode step; unpacked int8
-    doubles it), V padded to 2048 for the wide decode tiles. Logits must
-    match dense y @ dequant().T to quantization-roundoff, through both the
-    XLA fallback (CPU) and the interpreted Pallas packed kernel; the
-    artifact roundtrip must rebuild the packed copy bit-identically."""
-    import jax.numpy as jnp
-    from asr_tpu.ops.quant_matmul import _pallas_quant_dense_2d
-    from asr_tpu.quant.quantize import embedding_logits, quantize_embedding
-    from asr_tpu.runtime.artifact import flatten_pytree, unflatten_pytree
+    (the head is the largest weight read of a decode step; unpacked int8
+    doubles it). Logits must match dense y @ dequant().T to
+    quantization-roundoff, through embedding_logits and through the
+    quantized matmul on the stored leaf; padded columns give exactly-0
+    logits; the artifact roundtrip must rebuild the packed copy
+    bit-identically."""
+    from asr_jax.quant.quantize import embedding_logits, quantize_embedding
+    from asr_jax.runtime.artifact import flatten_pytree, unflatten_pytree
 
     rng = np.random.default_rng(7)
     v, d = 300, 256
@@ -463,18 +374,17 @@ def test_quantized_embedding_tied_head_q4_packs_nibbles():
     assert emb.scale_t.shape == (d // 128, v_pad)
     dense_ref = np.asarray(y @ emb.dequant().T)
 
-    got = np.asarray(embedding_logits(emb, y))  # XLA fallback on CPU
+    got = np.asarray(embedding_logits(emb, y))
     assert got.shape == (2, v)
     np.testing.assert_allclose(got, dense_ref, rtol=1e-5, atol=1e-5)
 
     leaf = {"q": emb.q_t, "scale": emb.scale_t, "zero": emb.zero_t,
             "bits": 4, "block": 128, "packed": True}
-    got_pl = _pallas_quant_dense_2d(y, leaf, interpret=True, mm="f32")
-    assert got_pl is not None, "packed tied head fell back to XLA"
-    np.testing.assert_allclose(np.asarray(got_pl)[:, :v], dense_ref,
-                               rtol=2e-5, atol=2e-5)
+    got_full = np.asarray(_xla_quant_dense(y, leaf))
+    assert got_full.shape == (2, v_pad)
+    np.testing.assert_allclose(got_full[:, :v], dense_ref, rtol=2e-5, atol=2e-5)
     # padded columns have zero scale -> exactly-0 logits
-    np.testing.assert_array_equal(np.asarray(got_pl)[:, v:], 0.0)
+    np.testing.assert_array_equal(got_full[:, v:], 0.0)
 
     back = unflatten_pytree(flatten_pytree({"embed": emb}))["embed"]
     assert back.q_t_packed
@@ -482,27 +392,49 @@ def test_quantized_embedding_tied_head_q4_packs_nibbles():
     np.testing.assert_array_equal(np.asarray(back.zero_t), np.asarray(emb.zero_t))
 
 
-def test_pallas_bf16_mm_mode_within_quant_error():
-    """Default kernel mode dequantizes to bf16 and runs one MXU pass:
-    rounding must stay well below the quantization error itself (and the
-    f32 mode must remain exact vs the XLA dequant reference)."""
-    import jax.numpy as jnp
-    from asr_tpu.ops.quant_matmul import _pallas_quant_dense_2d, _xla_quant_dense
-    from asr_tpu.quant.quantize import quantize_linear
-
-    rng = np.random.default_rng(11)
-    k, n = 512, 256
+@pytest.mark.parametrize("m", [1, 8, 64, 512])
+@pytest.mark.parametrize("bits,pack", [(8, False), (4, True), (2, True)],
+                         ids=["int8", "packed4", "packed2"])
+def test_xla_quant_dense_modes(bits, pack, m):
+    """The one quantized-matmul route in both modes against the f32
+    dequant reference: f32 mode exact, bf16 mode (one bf16 pass, f32
+    accumulation) well inside the quantization error itself."""
+    rng = np.random.default_rng(bits * 1000 + m)
+    k, n, block = 512, 256, 64
     w = jnp.asarray(rng.standard_normal((k, n)).astype(np.float32) * 0.05)
-    x = jnp.asarray(rng.standard_normal((4, k)).astype(np.float32))
-    for bits, pack in ((8, False), (4, True)):
-        qleaf = quantize_linear(w, bits=bits, block=64 if not pack else 32, pack=pack)
-        want = np.asarray(_xla_quant_dense(x, qleaf))
-        got16 = np.asarray(_pallas_quant_dense_2d(x, qleaf, interpret=True, mm="bf16"))
-        # bf16 rounding: relative error ~2^-8 per product, sqrt(K) growth.
-        scale = np.abs(want).max() + 1e-6
-        assert np.abs(got16 - want).max() / scale < 5e-2
-        got32 = np.asarray(_pallas_quant_dense_2d(x, qleaf, interpret=True, mm="f32"))
-        np.testing.assert_allclose(got32, want, rtol=2e-5, atol=2e-5)
+    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32))
+    qleaf = quantize_linear(w, bits=bits, block=block, pack=pack)
+    assert bool(qleaf["packed"]) == pack
+    want = np.asarray(jnp.dot(x, dequantize_weight(qleaf),
+                              precision=jax.lax.Precision.HIGHEST))
+    exact = np.asarray(x @ w)
+    try:
+        set_quant_config(mm="f32")
+        got32 = np.asarray(_xla_quant_dense(x, qleaf))
+        set_quant_config(mm="bf16")
+        got16 = np.asarray(_xla_quant_dense(x, qleaf))
+    finally:
+        set_quant_config(mm=None)
+    assert got32.shape == got16.shape == (m, n)
+    assert got32.dtype == got16.dtype == np.float32
+    np.testing.assert_allclose(got32, want, rtol=2e-5, atol=2e-5)
+    # bf16 rounding is ~2^-8 relative per operand; the quantization error
+    # (vs the unquantized weight) bounds it from above at every bit width
+    quant_err = np.abs(want - exact).max()
+    bf16_err = np.abs(got16 - want).max()
+    assert bf16_err < 0.5 * quant_err, (bf16_err, quant_err)
+    assert bf16_err / (np.abs(want).max() + 1e-6) < 2e-2
+
+
+def test_quant_mode_is_validated():
+    with pytest.raises(ValueError):
+        set_quant_config(mm="fp32")
+    try:
+        set_quant_config(mm="f32")
+        assert quant_dense(jnp.ones((1, 128)), quantize_linear(
+            jnp.ones((128, 8)), bits=8, block=64)).dtype == jnp.float32
+    finally:
+        set_quant_config(mm=None)
 
 
 def test_quantize_pytree_skips_depthwise_conv_kernels():
@@ -512,9 +444,9 @@ def test_quantize_pytree_skips_depthwise_conv_kernels():
     when the dw kernel became a QuantizedLinear)."""
     import jax
     import jax.numpy as jnp
-    from asr_tpu.models import firered as fr
-    from asr_tpu.decode.ar import DecodeConfig
-    from asr_tpu.quant.quantize import QuantizedLinear, quantize_pytree
+    from asr_jax.models import firered as fr
+    from asr_jax.decode.ar import DecodeConfig
+    from asr_jax.quant.quantize import QuantizedLinear, quantize_pytree
 
     cfg = fr.FireRedConfig(d_model=64, enc_heads=4, enc_layers=1, dec_layers=1,
                            dec_heads=4, dec_ffn=96, vocab_size=100, conv_kernel=9)
@@ -529,3 +461,66 @@ def test_quantize_pytree_skips_depthwise_conv_kernels():
     out = fr.transcribe(params, cfg, audio, jnp.asarray([8000], jnp.int32),
                         DecodeConfig(max_new_tokens=3, eot_id=-1))
     assert jax.tree.leaves(out)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1280, 1280), (3, 256, 384), (8, 512, 256),
+                                   (1, 5120, 1280), (4, 1280, 3840)])
+def test_quant_matvec_interpret_matches_f32_reference(m, k, n):
+    """The decode-shape kernel (Pallas, interpret mode on the CPU) against
+    the f32 dequant reference: it dequantizes in registers and accumulates
+    in f32, so it is exact up to summation order."""
+    from asr_jax.ops.quant_matmul import quant_matvec
+
+    kw, kx = jax.random.split(jax.random.PRNGKey(m * 7 + k + n))
+    w = jax.random.normal(kw, (k, n), jnp.float32) * 0.02
+    x = jax.random.normal(kx, (m, k), jnp.float32)
+    qleaf = quantize_linear(w, bits=8, block=128)
+    want = np.asarray(jnp.dot(x, dequantize_weight(qleaf),
+                              precision=jax.lax.Precision.HIGHEST))
+    got = np.asarray(quant_matvec(x, qleaf["q"], qleaf["scale"], qleaf["zero"],
+                                  interpret=True))
+    assert got.shape == (m, n) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    # each row is computed alone: one row through the kernel == that row of M
+    one = np.asarray(quant_matvec(x[:1], qleaf["q"], qleaf["scale"], qleaf["zero"],
+                                  interpret=True))
+    np.testing.assert_array_equal(one[0], got[0])
+
+
+def test_quant_matvec_split_planning():
+    from asr_jax.ops.quant_matmul import _k_splits
+
+    # enough programs (N tiles x K splits) to fill the card, K split in
+    # power-of-two runs of 128-row quant blocks
+    assert _k_splits(1280, 1280) == 10   # 10 tiles -> one block per split
+    assert _k_splits(1280, 5120) == 10   # 40 tiles x 10
+    assert _k_splits(5120, 1280) == 40
+    assert _k_splits(1280, 52224) == 5   # 408 tiles: pairs of blocks suffice
+    for k, n in ((1280, 1280), (5120, 1280), (1280, 52224), (4096, 4096)):
+        s = _k_splits(k, n)
+        per = (k // 128) // s
+        assert (k // 128) % s == 0 and per & (per - 1) == 0
+
+
+def test_quant_dense_routes_decode_shapes_to_matvec(monkeypatch):
+    """Route choice: small-M unpacked int8 block-128 leaves in bf16 mode on
+    a GPU take quant_matvec; everything else takes XLA."""
+    from asr_jax.ops import quant_matmul as qm
+
+    w = jnp.ones((256, 256), jnp.float32)
+    q8 = quantize_linear(w, bits=8, block=128)
+    q8_b64 = quantize_linear(w, bits=8, block=64)
+    p4 = quantize_linear(w, bits=4, block=128, pack=True)
+    x1, x9 = jnp.ones((1, 256)), jnp.ones((9, 256))
+    assert not qm._matvec_applies(x1, q8)  # CPU backend
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert qm._matvec_applies(x1, q8)
+    assert qm._matvec_applies(jnp.ones((8, 256)), q8)
+    assert not qm._matvec_applies(x9, q8)
+    assert not qm._matvec_applies(x1, q8_b64)
+    assert not qm._matvec_applies(x1, p4)
+    try:
+        set_quant_config(mm="f32")
+        assert not qm._matvec_applies(x1, q8)
+    finally:
+        set_quant_config(mm=None)

@@ -15,7 +15,7 @@ through the same ``Optimize_ONNX_Common.py`` pipeline as offline ones.
 import numpy as np
 import jax
 
-from asr_tpu.quant.quantize import (
+from asr_jax.quant.quantize import (
     QuantizedLinear,
     dequantize_weight,
     quantize_pytree,
@@ -55,10 +55,10 @@ def _count_quantized(params) -> int:
     return n
 
 
-def test_paraformer_streaming_q8_matches_dequantized_f32():
-    from asr_tpu.models import paraformer as pf
-    from asr_tpu.runtime.streaming_session import ParaformerStreamingSession
-    from asr_tpu.streaming import paraformer_online as po
+def test_paraformer_streaming_q8_matches_dequantized_f32(quant_mm_f32):
+    from asr_jax.models import paraformer as pf
+    from asr_jax.runtime.streaming_session import ParaformerStreamingSession
+    from asr_jax.streaming import paraformer_online as po
 
     base = pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4,
                                head_dim=8, ffn_dim=48, num_encoders0=1,
@@ -78,10 +78,10 @@ def test_paraformer_streaming_q8_matches_dequantized_f32():
     assert len(want.token_ids) > 0  # the CIF actually fired
 
 
-def test_dolphin_streaming_q8_matches_dequantized_f32():
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.runtime.streaming_session import DolphinStreamingSession
-    from asr_tpu.streaming import dolphin_stream as ds
+def test_dolphin_streaming_q8_matches_dequantized_f32(quant_mm_f32):
+    from asr_jax.models import dolphin as dp
+    from asr_jax.runtime.streaming_session import DolphinStreamingSession
+    from asr_jax.streaming import dolphin_stream as ds
 
     base = dp.DolphinConfig(vocab_size=60, d_model=32, enc_layers=2,
                             enc_heads=4, enc_ffn=48, cgmlp_dim=64,
@@ -110,7 +110,7 @@ def test_offline_paraformer_q8_predictor_head_routes():
     both the offline and streaming alpha paths must dispatch it."""
     import jax.numpy as jnp
 
-    from asr_tpu.models import paraformer as pf
+    from asr_jax.models import paraformer as pf
 
     base = pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4,
                                head_dim=8, ffn_dim=48, num_encoders0=1,

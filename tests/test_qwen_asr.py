@@ -10,10 +10,10 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.layers import qwen3
-from asr_tpu.loaders.qwen3_hf import config_from_hf, params_from_state_dict
-from asr_tpu.models import qwen_asr as qa
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.layers import qwen3
+from asr_jax.loaders.qwen3_hf import config_from_hf, params_from_state_dict
+from asr_jax.models import qwen_asr as qa
 
 
 @pytest.fixture(scope="module")
@@ -159,7 +159,7 @@ def test_full_pipeline_jit(tiny_llm):
 
 
 def test_language_prompt_and_output_parsing():
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate, parse_asr_output
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate, parse_asr_output
 
     assert parse_asr_output("language English<asr_text>hello world") == ("English", "hello world")
     assert parse_asr_output("hello") == ("", "hello")
@@ -195,8 +195,8 @@ def test_fuse_params_matches_unfused():
     default."""
     import numpy as np
 
-    from asr_tpu.layers import qwen3
-    from asr_tpu.quant.quantize import quantize_pytree
+    from asr_jax.layers import qwen3
+    from asr_jax.quant.quantize import quantize_pytree
 
     cfg = qwen3.Qwen3Config(vocab_size=96, hidden=32, num_layers=2, num_heads=4,
                             num_kv_heads=2, head_dim=8, ffn_dim=48,

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.models import qwen_asr as qa
+from asr_jax.models import qwen_asr as qa
 
 TOWER = dict(d=32, layers=2, heads=4, ffn=48, ds=8, n_mels=16)
 
@@ -52,7 +52,7 @@ def _tower_sd(rng):
 
 
 def _tiny_cfg():
-    from asr_tpu.layers.qwen3 import Qwen3Config
+    from asr_jax.layers.qwen3 import Qwen3Config
 
     return qa.QwenAsrConfig(
         n_mels=TOWER["n_mels"], tower_dim=TOWER["d"], tower_layers=TOWER["layers"],
@@ -107,7 +107,7 @@ def _torch_tower_forward(sd, mel):
 
 
 def test_tower_mapping_matches_torch_rederivation():
-    from asr_tpu.loaders.qwen_asr_hf import tower_params_from_state_dict
+    from asr_jax.loaders.qwen_asr_hf import tower_params_from_state_dict
 
     rng = np.random.default_rng(11)
     sd = _tower_sd(rng)
@@ -170,9 +170,9 @@ def _write_snapshot(tmp_path, sd_extra=None, classify=None):
 
 
 def test_load_qwen_asr_dir_and_builder(tmp_path):
-    from asr_tpu import export as ex
-    from asr_tpu.loaders.qwen_asr_hf import load_qwen_asr_dir
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax import export as ex
+    from asr_jax.loaders.qwen_asr_hf import load_qwen_asr_dir
+    from asr_jax.runtime.metadata import ModelMetadata
 
     src, want, _ = _write_snapshot(tmp_path)
     tower, llm, cfg = load_qwen_asr_dir(src)
@@ -185,16 +185,16 @@ def test_load_qwen_asr_dir_and_builder(tmp_path):
     out = ex.build_qwen_asr_artifact(src, tmp_path / "artifact")
     meta = ModelMetadata.load(out)
     assert meta.family == "qwen_asr"
-    from asr_tpu.cli import _build_session
+    from asr_jax.cli import _build_session
 
     sess = _build_session(out)
     assert type(sess).__name__ == "QwenAsrSession"
 
 
 def test_load_aligner_dir_and_builder(tmp_path):
-    from asr_tpu import export as ex
-    from asr_tpu.loaders.qwen_asr_hf import load_aligner_dir
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax import export as ex
+    from asr_jax.loaders.qwen_asr_hf import load_aligner_dir
+    from asr_jax.runtime.metadata import ModelMetadata
 
     src, want, _ = _write_snapshot(tmp_path, classify=25)
     tower, llm, head, cfg = load_aligner_dir(src)
@@ -269,10 +269,10 @@ def _nano_sd(rng):
 
 
 def test_fun_asr_nano_loader_and_builder(tmp_path):
-    from asr_tpu import export as ex
-    from asr_tpu.cli import _build_session
-    from asr_tpu.loaders import funasr
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax import export as ex
+    from asr_jax.cli import _build_session
+    from asr_jax.loaders import funasr
+    from asr_jax.runtime.metadata import ModelMetadata
 
     rng = np.random.default_rng(5)
     sd = _nano_sd(rng)
@@ -286,7 +286,7 @@ def test_fun_asr_nano_loader_and_builder(tmp_path):
     assert params["adaptor"]["blocks"][0]["qkv"]["w"].shape == (NANO["ad"], 3 * NANO["ad"])
 
     # CTC head forward with loaded weights.
-    from asr_tpu.models import fun_asr_nano as nano
+    from asr_jax.models import fun_asr_nano as nano
 
     audio = jnp.asarray((rng.standard_normal((1, 9600)) * 2000).astype(np.float32))
     toks, counts = nano.forward_ctc(params, cfg, audio, jnp.asarray([9600], np.int32))
@@ -307,7 +307,7 @@ def test_fun_asr_nano_loader_and_builder(tmp_path):
     out2 = ex.build_fun_asr_nano_artifact(src, tmp_path / "artifact_llm", head="llm", cfg=cfg)
     meta2 = ModelMetadata.load(out2)
     assert meta2.family == "fun_asr_nano_llm"
-    from asr_tpu.runtime.artifact import load_model
+    from asr_jax.runtime.artifact import load_model
 
     params2, _ = load_model(out2)
     assert "encoder" in params2 and "llm" in params2

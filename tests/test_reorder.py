@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.quant.quantize import dequantize_weight, quantize_linear
-from asr_tpu.quant.reorder import channel_reorder_pytree, channel_stat
+from asr_jax.quant.quantize import dequantize_weight, quantize_linear
+from asr_jax.quant.reorder import channel_reorder_pytree, channel_stat
 
 
 def _interleaved_scales(rng, d, h):

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.parallel.rnnt_loss import rnnt_loss, rnnt_loss_from_logits
+from asr_jax.parallel.rnnt_loss import rnnt_loss, rnnt_loss_from_logits
 
 
 def _ref_nll(lp, label, T, U, blank):
@@ -110,9 +110,9 @@ def test_perfect_model_low_loss():
 def test_transducer_train_step_decreases_loss():
     """Parakeet RNN-T fine-tuning: repeated steps on one batch reduce loss,
     and the step shards over a dp mesh (8 virtual CPU devices)."""
-    from asr_tpu.frontend.nemo_mel import NemoMelConfig
-    from asr_tpu.models import parakeet as pk
-    from asr_tpu.parallel import train
+    from asr_jax.frontend.nemo_mel import NemoMelConfig
+    from asr_jax.models import parakeet as pk
+    from asr_jax.parallel import train
 
     cfg = pk.ParakeetConfig(
         vocab_size=24, blank_id=23, d_model=32, num_layers=1, num_heads=4,
@@ -138,7 +138,7 @@ def test_transducer_train_step_decreases_loss():
     assert losses[-1] < losses[0] * 0.9, losses
 
     # dp-sharded execution on the virtual mesh
-    from asr_tpu.parallel.mesh import batch_sharded, make_mesh, replicated
+    from asr_jax.parallel.mesh import batch_sharded, make_mesh, replicated
 
     mesh = make_mesh(model_parallel=1)
     p_sh = jax.device_put(params, replicated(mesh))
@@ -179,7 +179,7 @@ def _ref_tdt_nll(tok_lp, dur_lp, label, T, U, durations, blank):
 
 
 def test_tdt_loss_matches_bruteforce():
-    from asr_tpu.parallel.rnnt_loss import tdt_loss
+    from asr_jax.parallel.rnnt_loss import tdt_loss
 
     rng = np.random.default_rng(5)
     t, u, v, durations, blank = 7, 3, 6, (0, 1, 2), 0

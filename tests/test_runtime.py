@@ -1,5 +1,5 @@
-"""Runtime: audio ingest on real fixtures, tokenizers, artifact roundtrip,
-sliding-window session."""
+"""Runtime: audio ingest on the seeded fixtures, tokenizers, artifact
+roundtrip, sliding-window session."""
 
 import struct
 
@@ -7,14 +7,13 @@ import numpy as np
 import pytest
 import jax
 
-from asr_tpu.models import sensevoice as sv
-from asr_tpu.runtime import audio as audio_io
-from asr_tpu.runtime.artifact import flatten_pytree, load_model, save_model, unflatten_pytree
-from asr_tpu.runtime.metadata import LanguageProfile, ModelMetadata
-from asr_tpu.runtime.session import SenseVoiceSession
-from asr_tpu.runtime.tokenizer import SentencePieceDecoder, VocabTxtDecoder
-
-FIXTURE_WAV = "/root/reference/Test_Examples/en/test_sample.wav"
+from asr_jax.models import sensevoice as sv
+from asr_jax.runtime import audio as audio_io
+from asr_jax.runtime.artifact import flatten_pytree, load_model, save_model, unflatten_pytree
+from asr_jax.runtime.examples import fixture_path
+from asr_jax.runtime.metadata import LanguageProfile, ModelMetadata
+from asr_jax.runtime.session import SenseVoiceSession
+from asr_jax.runtime.tokenizer import SentencePieceDecoder, VocabTxtDecoder
 
 TINY = sv.SenseVoiceConfig(
     vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -23,12 +22,26 @@ TINY = sv.SenseVoiceConfig(
 
 
 def test_load_audio_fixture_resampled_mono():
-    audio = audio_io.load_audio(FIXTURE_WAV, 16000)
+    audio = audio_io.load_audio(fixture_path("en/test_sample.wav"), 16000)
     assert audio.ndim == 1
     assert audio.dtype == np.float32
     # 268292 frames at 48 kHz -> ~89430 at 16 kHz
     assert abs(len(audio) - 268292 / 3) < 5
     assert np.abs(audio).max() > 100  # int16 numeric range
+
+
+def test_flac_fixture_holds_the_wav_samples():
+    """The generated FLAC stand-in decodes (Python decoder and load_audio)
+    to exactly the samples of its WAV twin."""
+    from asr_jax.runtime.flac import read_flac
+
+    flac, rate = read_flac(fixture_path("zh/zh-Shanghai.flac"))
+    wav, wav_rate = audio_io.read_wav(fixture_path("zh/zh-Shanghai.wav"))
+    assert rate == wav_rate == 16000
+    np.testing.assert_array_equal(flac.reshape(wav.shape), wav)
+    np.testing.assert_array_equal(
+        audio_io.load_audio(fixture_path("zh/zh-Shanghai.flac"), 16000),
+        audio_io.load_audio(fixture_path("zh/zh-Shanghai.wav"), 16000))
 
 
 def test_resample_identity_and_rate():
@@ -147,7 +160,7 @@ def test_session_sliding_window_long_audio():
 def test_session_on_fixture_file():
     params = sv.init_params(TINY, jax.random.PRNGKey(2))
     sess = SenseVoiceSession(params, TINY, window_seconds=8.0)
-    res = sess.transcribe(FIXTURE_WAV, language="en")
+    res = sess.transcribe(fixture_path("en/test_sample.wav"), language="en")
     assert res.audio_seconds > 5
 
 
@@ -155,8 +168,8 @@ def test_weight_dedup_aliases(tmp_path):
     """Byte-identical tensors stored once; load restores both paths sharing
     ONE device buffer (reference shared-initializer dedup analog)."""
     import jax.numpy as jnp
-    from asr_tpu.runtime.artifact import WEIGHTS_FILENAME, load_model, save_model
-    from asr_tpu.runtime.metadata import ModelMetadata
+    from asr_jax.runtime.artifact import WEIGHTS_FILENAME, load_model, save_model
+    from asr_jax.runtime.metadata import ModelMetadata
 
     rng = np.random.default_rng(0)
     big = rng.standard_normal((256, 64)).astype(np.float32)
@@ -168,8 +181,8 @@ def test_weight_dedup_aliases(tmp_path):
 
     meta = ModelMetadata.load(tmp_path / "m")
     assert meta.extra["weight_aliases"] == {"lm_head/w": "embed/w"}
-    from safetensors.numpy import load_file
-    stored = load_file(str(tmp_path / "m" / WEIGHTS_FILENAME))
+    from asr_jax.runtime.artifact import load_safetensors
+    stored = load_safetensors(tmp_path / "m" / WEIGHTS_FILENAME)
     assert "lm_head/w" not in stored and "embed/w" in stored
 
     loaded, _ = load_model(tmp_path / "m")
@@ -183,7 +196,7 @@ def test_weight_dedup_aliases(tmp_path):
 def test_stage_timer_and_trace(tmp_path):
     import time as _time
     import jax.numpy as jnp
-    from asr_tpu.runtime.profiling import StageTimer, annotate, trace
+    from asr_jax.runtime.profiling import StageTimer, annotate, trace
 
     t = StageTimer()
     with t("encode"):
@@ -206,7 +219,7 @@ def test_stage_timer_and_trace(tmp_path):
 
 def test_load_audio_batch_native_and_fallback(tmp_path):
     import wave
-    from asr_tpu.runtime.audio import load_audio, load_audio_batch
+    from asr_jax.runtime.audio import load_audio, load_audio_batch
 
     rng = np.random.default_rng(0)
     paths = []
@@ -238,8 +251,8 @@ def test_load_audio_batch_native_and_fallback(tmp_path):
 def test_sensevoice_transcribe_batch(tmp_path):
     import wave
     import jax
-    from asr_tpu.models import sensevoice as sv
-    from asr_tpu.runtime.session import SenseVoiceSession
+    from asr_jax.models import sensevoice as sv
+    from asr_jax.runtime.session import SenseVoiceSession
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=64,
@@ -272,7 +285,7 @@ def test_iter_windows_geometry():
     """The ONE windowing definition (audio.iter_windows) shared by sessions
     and the HTTP server: short audio -> one window; exact multiples don't
     produce an empty trailing window; overlap strides cover the tail."""
-    from asr_tpu.runtime.audio import iter_windows
+    from asr_jax.runtime.audio import iter_windows
 
     assert iter_windows(0, 100, 100) == [0]
     assert iter_windows(99, 100, 100) == [0]

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asr_tpu.decode.ctc import ctc_greedy_collapse
-from asr_tpu.layers.sanm import depthwise_conv1d_time, sanm_block
-from asr_tpu.models import sensevoice as sv
+from asr_jax.decode.ctc import ctc_greedy_collapse
+from asr_jax.layers.sanm import depthwise_conv1d_time, sanm_block
+from asr_jax.models import sensevoice as sv
 
 TINY = sv.SenseVoiceConfig(
     vocab_size=64,

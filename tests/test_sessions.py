@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax
 
-from asr_tpu.frontend.nemo_mel import NemoMelConfig
-from asr_tpu.runtime.examples import model_audio_cases
-from asr_tpu.runtime.transducer_session import (
+from asr_jax.frontend.nemo_mel import NemoMelConfig
+from asr_jax.runtime.examples import fixture_path, model_audio_cases
+from asr_jax.runtime.transducer_session import (
     FireRedSession,
     NemotronSession,
     ParakeetSession,
@@ -28,7 +28,7 @@ def test_examples_registry():
 
 
 def test_parakeet_session():
-    from asr_tpu.models import parakeet as pk
+    from asr_jax.models import parakeet as pk
 
     cfg = pk.ParakeetConfig(
         vocab_size=40, blank_id=39, d_model=64, num_layers=1, num_heads=4,
@@ -44,7 +44,7 @@ def test_parakeet_session():
 
 
 def test_nemotron_session():
-    from asr_tpu.models import nemotron as nm
+    from asr_jax.models import nemotron as nm
 
     cfg = nm.NemotronConfig(
         vocab_size=30, d_model=32, num_layers=1, num_heads=4, ffn_dim=48,
@@ -60,8 +60,8 @@ def test_nemotron_session():
 
 
 def test_firered_session():
-    from asr_tpu.decode.ar import DecodeConfig
-    from asr_tpu.models import firered as fr
+    from asr_jax.decode.ar import DecodeConfig
+    from asr_jax.models import firered as fr
 
     cfg = fr.FireRedConfig(
         vocab_size=60, d_model=32, enc_layers=1, enc_heads=4, conv_kernel=9,
@@ -76,7 +76,7 @@ def test_firered_session():
 
 
 def test_paraformer_session_on_fixture():
-    from asr_tpu.models import paraformer as pf
+    from asr_jax.models import paraformer as pf
 
     cfg = pf.ParaformerConfig(
         vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -85,16 +85,16 @@ def test_paraformer_session_on_fixture():
     )
     params = pf.init_params(cfg, jax.random.PRNGKey(3))
     sess = ParaformerSession(params, cfg, tokenizer=_Tok(), max_tokens=64, window_seconds=8.0)
-    res = sess.transcribe("/root/reference/Test_Examples/zh/zh-Shanghai.wav")
+    res = sess.transcribe(fixture_path("zh/zh-Shanghai.wav"))
     assert res.audio_seconds > 5
     assert res.rtf > 0
 
 
 def test_qwen_session():
     import jax.numpy as jnp
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -122,7 +122,7 @@ def test_qwen_session():
 
 
 def test_strip_language_tags():
-    from asr_tpu.runtime.transducer_session import strip_language_tags
+    from asr_jax.runtime.transducer_session import strip_language_tags
 
     assert strip_language_tags("<en> hello world") == "hello world"
     assert strip_language_tags("<zh-CN>你好<en>there") == "你好there"
@@ -131,9 +131,9 @@ def test_strip_language_tags():
 
 
 def test_nemotron_streaming_session():
-    from asr_tpu.models import nemotron as nm
-    from asr_tpu.streaming import nemotron_stream as ns
-    from asr_tpu.runtime.streaming_session import NemotronStreamingSession
+    from asr_jax.models import nemotron as nm
+    from asr_jax.streaming import nemotron_stream as ns
+    from asr_jax.runtime.streaming_session import NemotronStreamingSession
 
     base = nm.NemotronConfig(
         vocab_size=30, d_model=32, num_layers=1, num_heads=4, ffn_dim=48,
@@ -154,9 +154,9 @@ def test_nemotron_streaming_session():
 
 
 def test_dolphin_streaming_session():
-    from asr_tpu.models import dolphin as dp
-    from asr_tpu.streaming import dolphin_stream as ds
-    from asr_tpu.runtime.streaming_session import DolphinStreamingSession
+    from asr_jax.models import dolphin as dp
+    from asr_jax.streaming import dolphin_stream as ds
+    from asr_jax.runtime.streaming_session import DolphinStreamingSession
 
     base = dp.DolphinConfig(
         vocab_size=60, d_model=32, enc_layers=1, enc_heads=4, enc_ffn=48,
@@ -177,10 +177,10 @@ def test_dolphin_streaming_session():
 
 
 def test_fun_asr_nano_llm_session():
-    from asr_tpu.decode.ar import DecodeConfig
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import fun_asr_nano as fn
-    from asr_tpu.runtime.qwen_session import FunAsrNanoLlmSession, QwenPromptTemplate
+    from asr_jax.decode.ar import DecodeConfig
+    from asr_jax.layers import qwen3
+    from asr_jax.models import fun_asr_nano as fn
+    from asr_jax.runtime.qwen_session import FunAsrNanoLlmSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -220,8 +220,8 @@ def test_window_bucketing_single_executable():
     import jax
     import jax.numpy as jnp
 
-    from asr_tpu.models import sensevoice as sv
-    from asr_tpu.runtime.session import SenseVoiceSession, bucket_windows
+    from asr_jax.models import sensevoice as sv
+    from asr_jax.runtime.session import SenseVoiceSession, bucket_windows
 
     assert [bucket_windows(n) for n in (1, 2, 3, 4, 5, 8, 9)] == [1, 2, 4, 4, 8, 8, 16]
 
@@ -260,8 +260,8 @@ def test_sensevoice_sliding_window_stride():
     non-overlapping behavior exactly."""
     import jax
 
-    from asr_tpu.models import sensevoice as sv
-    from asr_tpu.runtime.session import SenseVoiceSession
+    from asr_jax.models import sensevoice as sv
+    from asr_jax.runtime.session import SenseVoiceSession
 
     cfg = sv.SenseVoiceConfig(
         vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
@@ -284,8 +284,8 @@ def test_sensevoice_sliding_window_stride():
 def test_qwen_session_language_alias_resolution():
     """transcribe(language=...) accepts any alias/name the artifact's
     metadata declares, not only the exact lowercase code."""
-    from asr_tpu.runtime.qwen_session import QwenAsrSession
-    from asr_tpu.runtime.metadata import LanguageProfile, ModelMetadata
+    from asr_jax.runtime.qwen_session import QwenAsrSession
+    from asr_jax.runtime.metadata import LanguageProfile, ModelMetadata
 
     meta = ModelMetadata(
         family="qwen_asr",
@@ -309,9 +309,9 @@ def test_qwen_session_transcribe_batch_matches_single():
     produce exactly the single-call results; the server surface _forward
     returns the generated region with the trailing EOT dropped."""
     import jax.numpy as jnp
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import qwen_asr as qa
-    from asr_tpu.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import qwen_asr as qa
+    from asr_jax.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=120, hidden=48, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=16, ffn_dim=64, rope_theta=1e4)
@@ -355,9 +355,9 @@ def test_qwen_session_transcribe_batch_matches_single():
 def test_fun_asr_nano_llm_batch_matches_single():
     """FunAsrNanoLlmSession.transcribe_batch: unequal durations, one
     lockstep decode, exact match with per-file calls."""
-    from asr_tpu.layers import qwen3
-    from asr_tpu.models import fun_asr_nano as fn
-    from asr_tpu.runtime.qwen_session import FunAsrNanoLlmSession, QwenPromptTemplate
+    from asr_jax.layers import qwen3
+    from asr_jax.models import fun_asr_nano as fn
+    from asr_jax.runtime.qwen_session import FunAsrNanoLlmSession, QwenPromptTemplate
 
     lcfg = qwen3.Qwen3Config(vocab_size=100, hidden=32, num_layers=1, num_heads=4,
                              num_kv_heads=2, head_dim=8, ffn_dim=48, rope_theta=1e4)

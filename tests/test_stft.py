@@ -6,7 +6,7 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.frontend.stft import istft, power_spectrum, stft
+from asr_jax.frontend.stft import istft, power_spectrum, stft
 
 
 def test_stft_matches_torch():

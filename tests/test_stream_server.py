@@ -10,11 +10,11 @@ import urllib.request
 import numpy as np
 import jax
 
-from asr_tpu.models import paraformer as pf
-from asr_tpu.runtime.streaming_session import ParaformerStreamingSession
-from asr_tpu.streaming import multistream as ms
-from asr_tpu.streaming import paraformer_online as po
-from asr_tpu.parallel.stream_server import (
+from asr_jax.models import paraformer as pf
+from asr_jax.runtime.streaming_session import ParaformerStreamingSession
+from asr_jax.streaming import multistream as ms
+from asr_jax.streaming import paraformer_online as po
+from asr_jax.parallel.stream_server import (
     start_stream_background, stream_pcm_over_http,
 )
 
@@ -151,7 +151,7 @@ def test_overlapped_windows_match_session_geometry():
     """advance < chunk: every fed window must cover [t*adv, t*adv+chunk) of
     the stream (the single-stream sessions' geometry), the tail pad must be
     appended before draining, and drain_min must bound the last window."""
-    from asr_tpu.parallel.stream_server import StreamingServer
+    from asr_jax.parallel.stream_server import StreamingServer
     import numpy as np
 
     chunk, adv, tail = 8, 4, 6

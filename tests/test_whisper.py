@@ -9,9 +9,9 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from asr_tpu.decode.ar import DecodeConfig
-from asr_tpu.loaders.whisper_hf import config_from_hf, params_from_state_dict
-from asr_tpu.models import whisper as wh
+from asr_jax.decode.ar import DecodeConfig
+from asr_jax.loaders.whisper_hf import config_from_hf, params_from_state_dict
+from asr_jax.models import whisper as wh
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +136,7 @@ def test_transcribe_window_jit_runs(tiny):
 
 
 def test_remove_repeated_tail():
-    from asr_tpu.runtime.whisper_session import remove_repeated_tail
+    from asr_jax.runtime.whisper_session import remove_repeated_tail
 
     assert remove_repeated_tail([1, 2, 3, 4, 3, 4, 3, 4]) == [1, 2, 3, 4]
     assert remove_repeated_tail([1, 2, 3]) == [1, 2, 3]
@@ -145,7 +145,7 @@ def test_remove_repeated_tail():
 
 
 def test_whisper_session_end_to_end(tiny):
-    from asr_tpu.runtime.whisper_session import WhisperSession, WhisperSessionConfig
+    from asr_jax.runtime.whisper_session import WhisperSession, WhisperSessionConfig
 
     model, cfg, params = tiny
     cfg2 = wh.WhisperConfig(
@@ -200,7 +200,7 @@ def test_bf16_kv_cache_storage_option():
     got = np.asarray(lg16, np.float32)
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 2e-2
 
-    from asr_tpu.decode.ar import DecodeConfig
+    from asr_jax.decode.ar import DecodeConfig
 
     out = wh.transcribe_window(
         params, bf, mel, jnp.asarray([[cfg.sot_id, -1, cfg.transcribe_id, cfg.no_timestamps_id]], jnp.int32),
@@ -222,7 +222,7 @@ def test_bf16_cast_params_full_window():
     params = wh.init_params(cfg, jax.random.PRNGKey(3), dtype=jnp.bfloat16)
     rng = np.random.default_rng(0)
     mel = jnp.asarray(rng.standard_normal((2, 40, cfg.n_mels)).astype(np.float32))
-    from asr_tpu.decode.ar import DecodeConfig
+    from asr_jax.decode.ar import DecodeConfig
 
     prompt = jnp.tile(jnp.asarray(
         [[cfg.sot_id, -1, cfg.transcribe_id, cfg.no_timestamps_id]], jnp.int32), (2, 1))

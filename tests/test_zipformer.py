@@ -8,7 +8,7 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.models import zipformer as zf
+from asr_jax.models import zipformer as zf
 
 TINY = zf.ZipformerConfig(
     vocab_size=40,

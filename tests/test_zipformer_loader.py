@@ -10,8 +10,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from asr_tpu.loaders import zipformer_icefall as zl
-from asr_tpu.models import zipformer as zf
+from asr_jax.loaders import zipformer_icefall as zl
+from asr_jax.models import zipformer as zf
 
 TINY = zf.ZipformerConfig(
     vocab_size=40,
